@@ -1,0 +1,88 @@
+"""Port DeviceIndex vs the JAX package's DeviceIndex on one carried index.
+
+One reference-built frozen index is carried across with
+``frozen_from_arrays``; both packages lay it out at the default row
+length (a shorter one truncates rows in both) and must give identical
+answers in every query mode — dense, sorted and kernel (the Pallas kernel
+interpreted, the port's plain version on CPU tensors) — full-height and
+row-windowed.
+"""
+import numpy as np
+import pytest
+
+pytest.importorskip("torch")
+
+from repro.build import build_rlc_index as j_build  # noqa: E402
+from repro.core.device_index import DeviceIndex as JDeviceIndex  # noqa: E402
+from repro.core.minimum_repeat import mr_id_space  # noqa: E402
+from repro.graphgen import erdos_renyi  # noqa: E402
+from repro_torch.convert import frozen_from_arrays  # noqa: E402
+from repro_torch.core.device_index import DeviceIndex  # noqa: E402
+
+FIELDS = ("aid", "out_indptr", "out_hub", "out_mr", "in_indptr", "in_hub",
+          "in_mr")
+
+
+@pytest.fixture(scope="module")
+def carried():
+    g = erdos_renyi(48, 3.5, 3, seed=4)
+    ids = mr_id_space(3, 2)
+    jfrozen = j_build(g, 2, backend="numpy").freeze(ids)
+    tfrozen = frozen_from_arrays(jfrozen.num_vertices, jfrozen.k,
+                                 *(getattr(jfrozen, f) for f in FIELDS))
+    return jfrozen, tfrozen, ids
+
+
+def queries(n, lo, hi, Q, C, seed):
+    rng = np.random.default_rng(seed)
+    return (rng.integers(lo, hi, Q), rng.integers(lo, hi, Q),
+            rng.integers(0, C, Q))
+
+
+@pytest.mark.parametrize("rows", [None, (12, 36)], ids=["full", "window"])
+def test_layout_equal(carried, rows):
+    jfrozen, tfrozen, ids = carried
+    if rows is not None:
+        jfrozen, tfrozen = (f.slice_rows(*rows) for f in (jfrozen, tfrozen))
+    j = JDeviceIndex.from_frozen(jfrozen, ids, rows=rows)
+    t = DeviceIndex.from_frozen(tfrozen, ids, rows=rows, device="cpu")
+    assert (t.row_len, t.num_mrs, t.row_lo) == (j.row_len, j.num_mrs,
+                                                j.row_lo)
+    for f in ("out_hub", "out_mr", "in_hub", "in_mr", "out_key", "in_key"):
+        np.testing.assert_array_equal(getattr(t, f).numpy(),
+                                      np.asarray(getattr(j, f)))
+
+
+@pytest.mark.parametrize("rows", [None, (12, 36)], ids=["full", "window"])
+@pytest.mark.parametrize("mode", ["dense", "sorted", "kernel"])
+def test_answers_equal(carried, mode, rows):
+    jfrozen, tfrozen, ids = carried
+    n = jfrozen.num_vertices
+    lo, hi = (0, n) if rows is None else rows
+    if rows is not None:
+        jfrozen, tfrozen = (f.slice_rows(*rows) for f in (jfrozen, tfrozen))
+    j = JDeviceIndex.from_frozen(jfrozen, ids, rows=rows)
+    t = DeviceIndex.from_frozen(tfrozen, ids, rows=rows, device="cpu")
+    # the interpreted Pallas kernel takes one grid step per query
+    Q = 64 if mode == "kernel" else 2000
+    s, tt, m = queries(n, lo, hi, Q, len(ids), seed=Q + lo)
+    if mode == "kernel":
+        want = j.query_batch(s, tt, m, use_pallas=True)
+        got = t.query_batch(s, tt, m, use_kernel=True)
+    else:
+        want = j.query_batch(s, tt, m, method=mode)
+        got = t.query_batch(s, tt, m, method=mode)
+    np.testing.assert_array_equal(got, np.asarray(want))
+    np.testing.assert_array_equal(got, tfrozen.query_batch(s, tt, m))
+
+
+def test_row_digests_equal(carried):
+    jfrozen, tfrozen, ids = carried
+    j = JDeviceIndex.from_frozen(jfrozen, ids)
+    t = DeviceIndex.from_frozen(tfrozen, ids, device="cpu")
+    v = np.array([0, 5, 47, 5])
+    for a, b in ((t.gather_out_rows(v), j.gather_out_rows(v)),
+                 (t.gather_in_rows(v), j.gather_in_rows(v))):
+        for x, y in zip(a, b):
+            np.testing.assert_array_equal(x.numpy(), np.asarray(y))
+    assert t.query(3, 7, (0,)) == j.query(3, 7, (0,))
