@@ -7,7 +7,8 @@ Drives the port's main path once at the published size of the paper's
 Advogato graph (AD: 6,541 vertices, 3 labels, k = 2) through the entry
 points a user calls:
 
-1. builds the two CUDA kernels from ``src/repro_torch/kernels/csrc``;
+1. builds the CUDA kernels from ``src/repro_torch/kernels/csrc``, one
+   ``nvcc`` for each source, all started together;
 2. holds each kernel against its plain PyTorch version on the card, bit
    for bit, at the main path's shapes, and times both with CUDA events;
 3. ``RLCService.build`` on the card with the default build backend, which
@@ -20,8 +21,25 @@ points a user calls:
 5. one ``DeviceIndex.query_batch`` of 65,536 queries through the kernel,
    compared in full with the CSR join.
 
-Launch counts are reset to 0 right before steps 3-4 and read right after
-step 4; the ``kernels`` line reports those counts.
+6. holds the dense engine's kernels (``bool_matmul``, ``closure_step``)
+   and the rest of the kernel surface (``bitpack_matmul``,
+   ``frontier_step``, ``frontier_steps``) against their plain versions on
+   the card, bit for bit, at the dense engine's shapes (``n = 6541``
+   padded to 6656), and times each beside its plain version and, where
+   one PyTorch call computes the same function, that call;
+7. the dense path: ``DenseEngine.build`` on the card (every product
+   through the two semiring kernels; its ``reach`` must equal the plain
+   path's), ``build_condensed_device`` at ``hub_batch = 8`` and an
+   ``RLCService`` over the condensed index, whose answers to 64 sources x
+   all targets x all MRs, through the merge kernel, must equal ``reach``
+   and the step-3 index's answers;
+8. the kernel surface's path: product-automaton BFS from sampled sources
+   through ``frontier_step``, ``frontier_steps`` and ``bitpack_matmul``,
+   whose visited sets must equal ``reach``.
+
+Launch counts are reset to 0 right before steps 3-4, 7 and 8 and read
+right after each; the ``kernels`` line reports each kernel's count from
+the path that runs it.
 Any failure raises and the script exits non-zero; without a CUDA device,
 or without the repository beside it, it exits non-zero before printing a
 result. The last line is ``{"ok": true, "device": {...}}``.
@@ -43,6 +61,8 @@ K = 2
 SEED = 0
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory rate
 CUDA_CORE_OPS_PER_S = 67e12  # H100 SXM 32-bit rate outside tensor cores
+TENSOR_OPS_PER_S = 989e12    # H100 SXM dense bf16 tensor-core rate
+HUB_BATCH = 8                # distributed_build's default in the reference
 
 
 def log(*args) -> None:
@@ -64,9 +84,10 @@ def cuda_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound_ms(nbytes: float, ops: float):
+def bound_ms(nbytes: float, ops: float,
+             ops_per_s: float = CUDA_CORE_OPS_PER_S):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / CUDA_CORE_OPS_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -157,6 +178,229 @@ def check_frontier(torch, engine, rng, R: int, density: float) -> dict:
                 bound_by=by)
 
 
+def compare(name: str, got, want) -> float:
+    """Largest absolute difference of two results (0/1 values, or int32
+    words read as their 0/1 bits); raises unless it is 0."""
+    import torch
+    from repro_torch.kernels import ref
+    if got.dtype == torch.int32:
+        got, want = ref.unpack_bits(got), ref.unpack_bits(want)
+    err = float((got.float() - want.float()).abs().max()) \
+        if got.numel() else 0.0
+    if err != 0.0 or got.shape != want.shape:
+        raise AssertionError(f"{name} differs from its plain version: max "
+                             f"abs err {err}, shapes {tuple(got.shape)} "
+                             f"{tuple(want.shape)}")
+    return err
+
+
+def timed(name: str, err: float, kernel, plain, library, nbytes: float,
+          ops: float, ops_per_s: float, iters: int, note: str) -> dict:
+    """Time the kernel, its plain version and the library call (or None)
+    with CUDA events; the bound from the bytes and operations given."""
+    ms = cuda_ms(kernel, iters)
+    plain_ms = cuda_ms(plain, 3)
+    library_ms = cuda_ms(library, 3) if library is not None else None
+    b, by = bound_ms(nbytes, ops, ops_per_s)
+    lib = f"{library_ms:.4f} ms" if library_ms is not None else "none"
+    log(f"{name} {note}: max abs err {err}; kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, library {lib}, bound {b:.5f} ms ({by})")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b,
+                bound_by=by, library_ms=library_ms)
+
+
+def packed_rows_bytes(F, labels, Vp: int, W: int) -> int:
+    """Bytes of the packed adjacency rows a wave reads: one row of W words
+    for every distinct (label, non-zero frontier column) pair."""
+    r, u = np.nonzero(F)
+    labels = np.broadcast_to(np.asarray(labels), (F.shape[0],))
+    return len(np.unique(labels[r].astype(np.int64) * Vp + u)) * W * 4
+
+
+def check_dense_kernels(torch, g, rng) -> dict:
+    """The dense engine's kernels and the rest of the kernel surface
+    against their plain versions at the dense engine's shapes (n = 6541
+    padded to the tile, 6656)."""
+    from repro_torch.core import dense
+    from repro_torch.kernels import bitpack, label_frontier
+    from repro_torch.kernels import ops, ref
+
+    A = dense.label_adjacency(g, "cuda")
+    nl, n_pad = A.shape[0], A.shape[1]
+    n = g.num_vertices
+    W = n_pad // 32
+    res = {}
+
+    # bool_matmul: one step product of the MR (0, 1), f32 and bf16, and
+    # once unpadded (n = 6541: the kernel's masked, scalar-load path)
+    a, b = A[0], A[1]
+    got = ops.bool_matmul(a, b)
+    err = compare("bool_matmul", got, ref.bool_matmul_ref(a, b))
+    for x, y, what in ((a.bfloat16(), b.bfloat16(), "bf16"),
+                       (a[:n, :n].contiguous(), b[:n, :n].contiguous(),
+                        f"unpadded n={n}")):
+        ok = compare(f"bool_matmul {what}", ops.bool_matmul(x, y),
+                     ref.bool_matmul_ref(x, y))
+        log(f"bool_matmul {what}: max abs err {ok}")
+    ab, bb = a.bfloat16(), b.bfloat16()
+    log(f"bool_matmul bf16 n={n_pad}: kernel "
+        f"{cuda_ms(lambda: ops.bool_matmul(ab, bb), 10):.4f} ms")
+    del ab, bb
+    res["bool_matmul"] = timed(
+        "bool_matmul", err, lambda: ops.bool_matmul(a, b),
+        lambda: ref.bool_matmul_ref(a, b), lambda: torch.matmul(a, b),
+        3 * n_pad * n_pad * 4, 2 * n_pad ** 3, TENSOR_OPS_PER_S, 10,
+        f"f32 {n_pad}x{n_pad}x{n_pad}")
+
+    # closure_step on that step matrix, the first doubling step's input
+    M = got
+    out = torch.empty_like(M)
+    err = compare("closure_step", ops.closure_step(M, out=out),
+                  ref.fused_closure_step_ref(M))
+    Mb = M.bfloat16()
+    compare("closure_step bf16", ops.closure_step(Mb),
+            ref.fused_closure_step_ref(Mb))
+    del Mb
+    res["closure_step"] = timed(
+        "closure_step", err, lambda: ops.closure_step(M, out=out),
+        lambda: ref.fused_closure_step_ref(M), lambda: torch.matmul(M, M),
+        2 * n_pad * n_pad * 4, 2 * n_pad ** 3, TENSOR_OPS_PER_S, 10,
+        f"f32 n={n_pad}")
+
+    # bitpack_matmul: the step matrix against the packed A[2]
+    P = ref.pack_bits(A[2])
+    got = bitpack.bitpack_matmul(M, P)
+    err = compare("bitpack_matmul", got, ref.bitpack_matmul_ref(M, P))
+    Mh = M.cpu().numpy()
+    rows = int(np.count_nonzero(Mh.any(axis=0)))
+    nnz = int(np.count_nonzero(Mh))
+    res["bitpack_matmul"] = timed(
+        "bitpack_matmul", err, lambda: bitpack.bitpack_matmul(M, P),
+        lambda: ref.bitpack_matmul_ref(M, P), None,
+        M.numel() * 4 + n_pad * W * 4 + rows * W * 4,
+        nnz * W + M.numel(), CUDA_CORE_OPS_PER_S, 20,
+        f"a {n_pad}x{n_pad} ({nnz} > 0), b {n_pad}x{W} words")
+    del Mh
+
+    # frontier_step: 300 frontier rows, 1 % dense, on the dense A[1]
+    B = 300
+    F = np.zeros((B, n_pad), np.float32)
+    F[:, :n] = rng.random((B, n)) < 0.01
+    tF = torch.from_numpy(F).cuda()
+    got = label_frontier.frontier_step(tF, A, 1)
+    err = compare("frontier_step", got, ref.frontier_step_ref(tF, A, 1))
+    res["frontier_step"] = timed(
+        "frontier_step", err, lambda: label_frontier.frontier_step(tF, A, 1),
+        lambda: ref.frontier_step_ref(tF, A, 1),
+        lambda: torch.matmul(tF, A[1]),
+        (2 * B * n_pad + n_pad * n_pad) * 4, 2 * B * n_pad * n_pad,
+        TENSOR_OPS_PER_S, 20, f"B={B} V={n_pad}")
+
+    # frontier_steps: R = 300, T = 2, a cyclic row shift after each wave
+    T = 2
+    labels = rng.integers(0, nl, (T, B)).astype(np.int32)
+    dst = np.tile((np.arange(B) + B // 2) % B, (T, 1)).astype(np.int32)
+    got = label_frontier.frontier_steps(tF, A, labels, dst)
+    tl, td = (torch.from_numpy(x) for x in (labels, dst))
+    err = compare("frontier_steps", got,
+                  ref.frontier_steps_ref(tF, A, tl, td))
+    # the kernel alone: T launches over the adjacency packed once
+    AP = torch.stack([ref.pack_bits(A[lab]) for lab in range(nl)])
+    cl, cd = tl.cuda(), td.cuda()
+    bufs = [tF.clone(), torch.empty_like(tF), torch.empty_like(tF)]
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def waves():
+        src = bufs[0]
+        for t in range(T):
+            label_frontier.STEPS_KERNEL(
+                src.data_ptr(), AP.data_ptr(), cl[t].data_ptr(),
+                cd[t].data_ptr(), bufs[1 + t % 2].data_ptr(), B, n_pad, W,
+                stream)
+            src = bufs[1 + t % 2]
+    # bytes and ORs of each wave, from this run's frontiers
+    nbytes = ops_ = 0
+    Ft = F
+    for t in range(T):
+        nbytes += 2 * Ft.nbytes + 8 * B + packed_rows_bytes(
+            Ft, labels[t], n_pad, W)
+        ops_ += int(np.count_nonzero(Ft)) * W + B * n_pad
+        Ft = ref.frontier_steps_ref(
+            torch.from_numpy(Ft).cuda(), A, tl[t:t + 1],
+            td[t:t + 1]).cpu().numpy()
+    res["frontier_steps"] = timed(
+        "frontier_steps", err, waves,
+        lambda: ref.frontier_steps_ref(tF, A, tl, td), None, nbytes, ops_,
+        CUDA_CORE_OPS_PER_S, 20, f"R={B} V={n_pad} T={T}, cyclic dst")
+    return res
+
+
+def counted(torch, kernels, names, run):
+    """Run ``run()`` with every launch count at 0; return its result and
+    the counts of ``names`` right after (each must be > 0)."""
+    for kern in kernels.values():
+        kern.launches = 0
+    out = run()
+    torch.cuda.synchronize()
+    counts = {name: kernels[name].launches for name in names}
+    if not all(counts.values()):
+        raise AssertionError(f"a kernel of the path never ran: {counts}")
+    return out, counts
+
+
+def bfs_closure(torch, step, seeds):
+    """Rows of vertices reached by one or more repetitions: ``step(X)``
+    advances frontier rows X by one repetition; pruned on the card."""
+    X = seeds
+    visited = torch.zeros_like(seeds)
+    while True:
+        Y = step(X)
+        X = Y * (1 - visited)
+        if not X.any():
+            return visited
+        visited = torch.maximum(visited, Y)
+
+
+def run_surface_path(torch, g, eng, rng):
+    """Product-automaton BFS from 150 sampled sources along length-2 MRs,
+    through the kernel surface: ``frontier_step`` for (0, 1),
+    ``frontier_steps`` for (0, 2) and (2, 0) at once (one row per source
+    and phase, a cyclic row shift after each wave), ``bitpack_matmul`` for
+    (1, 2). Each visited set must equal the dense engine's ``reach``."""
+    from repro_torch.core import dense
+    from repro_torch.kernels import bitpack, label_frontier
+    from repro_torch.kernels import ops, ref
+
+    A = dense.label_adjacency(g, "cuda")
+    n, n_pad = g.num_vertices, A.shape[1]
+    S = np.sort(rng.choice(n, 150, replace=False))
+    seeds = torch.zeros((len(S), n_pad), device="cuda")
+    seeds[torch.arange(len(S)), torch.from_numpy(S).cuda()] = 1
+    got = {}
+
+    got[(0, 1)] = bfs_closure(torch, lambda X: ops.frontier_step(
+        ops.frontier_step(X, A, 0), A, 1), seeds)
+
+    B = len(S)
+    labels = np.tile([0] * B + [2] * B, (2, 1))   # the same at each wave
+    dst = np.tile((np.arange(2 * B) + B) % (2 * B), (2, 1))
+    both = bfs_closure(
+        torch, lambda X: label_frontier.frontier_steps(X, A, labels, dst),
+        torch.cat([seeds, seeds]))
+    got[(0, 2)], got[(2, 0)] = both[:B], both[B:]
+
+    P1, P2 = ref.pack_bits(A[1]), ref.pack_bits(A[2])
+    got[(1, 2)] = bfs_closure(torch, lambda X: ref.unpack_bits(
+        bitpack.bitpack_matmul(ref.unpack_bits(
+            bitpack.bitpack_matmul(X, P1)), P2)), seeds)
+
+    for mr, visited in got.items():
+        want = eng.reach[eng.mr_ids[mr]][S]
+        if not np.array_equal(visited[:, :n].cpu().numpy() > 0, want):
+            raise AssertionError(f"BFS along {mr} differs from reach")
+    return len(S)
+
+
 def entry_sets(idx):
     return tuple(tuple(sorted((v, h, m) for v, d in enumerate(maps)
                               for h, ms in d.items() for m in ms))
@@ -171,6 +415,7 @@ def main() -> int:
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     from repro_torch.build import build_rlc_index_with_stats
     from repro_torch.build.cuda_backend import CudaEngine
+    from repro_torch.core import dense
     from repro_torch.core.baselines import bibfs_rlc
     from repro_torch.core.device_index import DeviceIndex
     from repro_torch.core.queries import biased_true_queries
@@ -188,7 +433,7 @@ def main() -> int:
     log(card)
 
     t0 = time.perf_counter()
-    logs = _build.build(["mergejoin", "label_frontier"])
+    logs = _build.build(["mergejoin", "label_frontier", "bool_semiring"])
     log(f"kernel build: {time.perf_counter() - t0:.2f} s")
     for src, text in logs.items():
         for line in text.splitlines():
@@ -277,7 +522,8 @@ def main() -> int:
         f"{sum(a.value for a in answers)} true; equal to the CSR join and "
         f"to BiBFS on 200 samples; merge launches "
         f"{KERNELS['mergejoin'].launches}, fallbacks 0")
-    launches = {name: kern.launches for name, kern in KERNELS.items()}
+    launches = {name: KERNELS[name].launches
+                for name in ("mergejoin", "label_frontier")}
     if not all(launches.values()):
         raise AssertionError(f"a kernel of the path never ran: {launches}")
 
@@ -298,16 +544,104 @@ def main() -> int:
         f"(host clock, copies included, 1 merge launch not counted in the "
         f"kernels line), {int(got.sum())} true, equal to the CSR join")
 
+    # -- the dense engine's kernels against their plain versions ------- #
+    torch.backends.cuda.matmul.allow_tf32 = False   # the default, stated
+    results.update(check_dense_kernels(torch, g, rng))
+
+    # -- the dense path, counted --------------------------------------- #
+    t0 = time.perf_counter()
+    eng, dense_counts = counted(torch, KERNELS, ("bool_matmul",
+                                                 "closure_step"),
+                                lambda: dense.DenseEngine.build(g, K, device="cuda"))
+    dense_s = time.perf_counter() - t0
+    C = len(eng.mrs)
+    log(f"DenseEngine.build: {dense_s:.3f} s (host clock, reach copied to "
+        f"the host), {C} MRs, {eng.num_true_pairs()} true (c, u, v); "
+        f"bool_matmul launches {dense_counts['bool_matmul']}, "
+        f"closure_step launches {dense_counts['closure_step']}")
+    t0 = time.perf_counter()
+    plain_eng = dense.DenseEngine.build(g, K, matmul=dense.bool_matmul,
+                                        device="cuda")
+    log(f"DenseEngine.build, plain products (torch.matmul + threshold): "
+        f"{time.perf_counter() - t0:.3f} s")
+    if not np.array_equal(eng.reach, plain_eng.reach):
+        raise AssertionError("the kernels' reach differs from the plain "
+                             "path's")
+    del plain_eng
+
+    def condensed():
+        t0 = time.perf_counter()
+        idx, _ = dense.build_condensed_device(
+            g, K, hub_batch=HUB_BATCH, reach=eng.reach, device="cuda")
+        cond_s = time.perf_counter() - t0
+        csvc = RLCService(g, idx, ServiceConfig(k=K, device="cuda"))
+        # 64 sources x every target x every MR through the merge kernel
+        src = np.sort(rng.choice(g.num_vertices, 64, replace=False))
+        qs, qt, qc = (a.ravel() for a in np.meshgrid(
+            src, np.arange(g.num_vertices), np.arange(C), indexing="ij"))
+        got = csvc.device_index.query_batch(qs, qt, qc, use_kernel=True)
+        alg2 = svc.device_index.query_batch(qs, qt, qc, use_kernel=True)
+        want = eng.reach[qc, qs, qt]
+        if not (np.array_equal(got, want) and np.array_equal(alg2, want)):
+            raise AssertionError(
+                f"condensed index / Algorithm-2 index / reach disagree on "
+                f"{int((got != want).sum())} / {int((alg2 != want).sum())} "
+                f"of {len(qs)} queries")
+        answers_c = csvc.query_batch(queries)
+        if {a.backend for a in answers_c
+                if a.disposition == "computed"} != {"cuda"} \
+                or csvc.executor.fallbacks:
+            raise AssertionError("the condensed service left the kernel")
+        if [a.value for a in answers_c] != [a.value for a in answers]:
+            raise AssertionError("the condensed service's answers differ "
+                                 "from the Algorithm-2 service's")
+        return idx, csvc, cond_s, len(qs), int(want.sum())
+
+    (idx_c, svc_c, cond_s, n_q, n_true), cond_counts = counted(
+        torch, KERNELS, ("mergejoin",), condensed)
+    log(f"build_condensed_device(hub_batch={HUB_BATCH}): {cond_s:.3f} s "
+        f"(host clock), entries {idx_c.num_entries()} (Algorithm-2 index: "
+        f"{svc.index.num_entries()}), row length E="
+        f"{svc_c.device_index.row_len}; {n_q} queries (64 sources x all "
+        f"targets x {C} MRs, {n_true} true) through the merge kernel equal "
+        f"reach and the Algorithm-2 index; {len(queries)} served queries "
+        f"from backend cuda, fallbacks 0, equal to the first service's; "
+        f"merge launches {cond_counts['mergejoin']}")
+    del svc_c
+
+    # -- the kernel surface's path, counted ---------------------------- #
+    n_src, surface_counts = counted(
+        torch, KERNELS, ("frontier_step", "frontier_steps",
+                         "bitpack_matmul"),
+        lambda: run_surface_path(torch, g, eng, rng))
+    log(f"surface BFS: {n_src} sources along (0 1), (0 2), (2 0), (1 2) "
+        f"equal reach; launches {surface_counts}")
+    launches.update(dense_counts)
+    launches.update(surface_counts)
+
+    csrc = "src/repro_torch/kernels/csrc/"
     meta = {
-        "mergejoin": ("src/repro_torch/kernels/csrc/mergejoin.cu",
+        "mergejoin": (csrc + "mergejoin.cu",
                       "src/repro/kernels/mergejoin.py:40"),
-        "label_frontier": ("src/repro_torch/kernels/csrc/label_frontier.cu",
+        "label_frontier": (csrc + "label_frontier.cu",
                            "src/repro/kernels/label_frontier.py:76"),
+        "frontier_steps": (csrc + "label_frontier.cu",
+                           "src/repro/kernels/label_frontier.py:113"),
+        "frontier_step": (csrc + "bool_semiring.cu",
+                          "src/repro/kernels/label_frontier.py:45"),
+        "bool_matmul": (csrc + "bool_semiring.cu",
+                        "src/repro/kernels/bool_semiring.py:57"),
+        "closure_step": (csrc + "bool_semiring.cu",
+                         "src/repro/kernels/bool_semiring.py:84"),
+        "bitpack_matmul": (csrc + "label_frontier.cu",
+                           "src/repro/kernels/bitpack.py:64"),
     }
+    for name in ("mergejoin", "label_frontier"):
+        results[name].setdefault("library_ms", None)
     log(json.dumps({"kernels": [
         dict(name=name, route="cuda", source=meta[name][0],
              replaces=meta[name][1], launches=launches[name],
-             library_ms=None, **results[name])
+             **results[name])
         for name in KERNELS]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

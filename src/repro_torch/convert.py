@@ -5,7 +5,8 @@ dicts, so an index built by one can be served by the other: pass the
 fields of a ``repro`` index (``FrozenRLCIndex`` arrays, or ``RLCIndex``
 entry maps) and get the port's object holding the same entries. Tests use
 this to put the *same* index behind both packages' device layouts and
-services.
+services, and the *same* dense reachability stack behind both packages'
+condensed builds.
 """
 from __future__ import annotations
 
@@ -13,7 +14,10 @@ from typing import Dict, List, Set
 
 import numpy as np
 
-from repro_torch.core.minimum_repeat import LabelSeq
+from repro_torch.core.dense import DenseEngine
+from repro_torch.core.graph import LabeledGraph
+from repro_torch.core.minimum_repeat import (LabelSeq, enumerate_mrs,
+                                             mr_id_space)
 from repro_torch.core.rlc_index import FrozenRLCIndex, RLCIndex
 
 
@@ -49,3 +53,18 @@ def index_from_entries(num_vertices: int, k: int, aid,
                           for h, ms in d.items()} for d in maps]
     return RLCIndex(int(num_vertices), int(k), np.array(aid),
                     l_in=copy(l_in), l_out=copy(l_out))
+
+
+def dense_engine_from_arrays(graph: LabeledGraph, k: int, reach
+                             ) -> DenseEngine:
+    """The port's :class:`DenseEngine` over a copy of a ``(C, n, n)``
+    reachability stack (a ``repro`` ``DenseEngine.reach``), for the
+    port's ``graph`` and ``k``."""
+    mrs = enumerate_mrs(graph.num_labels, int(k))
+    n = graph.num_vertices
+    reach = np.array(reach, dtype=bool)
+    if reach.shape != (len(mrs), n, n):
+        raise ValueError(f"reach must be ({len(mrs)}, {n}, {n}), not "
+                         f"{reach.shape}")
+    return DenseEngine(graph, int(k), mrs,
+                       mr_id_space(graph.num_labels, int(k)), reach)

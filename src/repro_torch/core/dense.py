@@ -1,0 +1,232 @@
+"""Dense boolean-semiring engine on the card (the JAX package's
+``repro/core/dense.py``, DESIGN.md §3).
+
+The paper's kernel-BFS guided by ``L^+`` is a BFS over the product
+automaton ``V x {0..m-1}``; batching all sources turns the whole index
+computation into boolean matrix-matrix products. This module provides:
+
+* ``mr_step_matrix``   — ``M_L = A[l1] (x) ... (x) A[lm]`` (OR-AND chain);
+* ``plus_closure``     — ``M^+`` by log-doubling (``h <= |V|`` repeats);
+* ``DenseEngine``      — ETC-equivalent all-pairs ``S^k`` oracle on device;
+* ``build_condensed_device`` — hub-batched pruned 2-hop labeling: the
+  paper's Algorithm 2 re-derived as masked matmuls (PR2 is the aid mask,
+  PR1 a vectorized coverage query, one matmul per hub batch; batch size 1
+  reproduces the sequential pruning schedule).
+
+Boolean values ride in float32 (0/1). With no ``matmul`` given, the
+products run through the hand-written kernels of
+:mod:`repro_torch.kernels.bool_semiring` on a CUDA device (the plain
+versions on the CPU): the step chain through ``bool_matmul`` and each
+doubling step through the fused ``closure_step``, which computes the
+reference's ``max(R, matmul(R, R))`` in one launch. A caller-given
+``matmul`` keeps the reference's form. The engine pads the adjacency
+once to a multiple of the kernel tile (zero rows and columns add no
+paths) and takes the doubling count from the unpadded ``n``, as the
+reference does. The coverage products of the condensed build stay
+``torch.bmm``, as the JAX package leaves them to XLA. All products sum
+0/1 values in float32, exact whether or not TF32 is on; PyTorch's
+default (TF32 off) is assumed and not changed here.
+
+Entry points take ``device="cuda"`` by default and raise where no card
+is present. ``DenseEngine.reach`` is a numpy ``(C, n, n)`` bool array, as
+in the JAX package.
+"""
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Callable, Dict, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.core.devices import resolve_device
+from repro_torch.core.graph import LabeledGraph
+from repro_torch.core.minimum_repeat import (LabelSeq, enumerate_mrs,
+                                             mr_id_space)
+from repro_torch.core.rlc_index import RLCIndex
+from repro_torch.kernels import bool_semiring
+from repro_torch.kernels.ref import bool_matmul_ref
+
+MatMul = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
+
+
+#: OR-AND semiring product for 0/1 float arrays (reference path)
+bool_matmul = bool_matmul_ref
+
+
+def _n_iters(n: int) -> int:
+    return max(1, math.ceil(math.log2(max(n, 2))))
+
+
+def mr_step_matrix(A: torch.Tensor, mr: Sequence[int],
+                   matmul: Optional[MatMul] = None) -> torch.Tensor:
+    """``M_L[u, v] = 1`` iff a path u->v spells exactly ``L``. ``A`` is the
+    (|L|, n, n) label-sliced adjacency stack; ``matmul`` defaults to the
+    ``bool_matmul`` kernel."""
+    matmul = matmul or bool_semiring.bool_matmul
+    M = A[mr[0]]
+    for lab in mr[1:]:
+        M = matmul(M, A[lab])
+    return M
+
+
+def plus_closure(M: torch.Tensor, n_iters: Optional[int] = None,
+                 matmul: Optional[MatMul] = None) -> torch.Tensor:
+    """``M^+ = M | M^2 | ...`` via log-doubling: R_{i+1} = R_i | R_i R_i
+    covers powers 1..2^(i+1); minimal repeat count is <= |V|.
+
+    With no ``matmul``, each step is one fused ``closure_step`` launch
+    into the other of two buffers (never into ``M``, which may be a view
+    of the adjacency)."""
+    iters = n_iters if n_iters is not None else _n_iters(M.shape[-1])
+    R = M
+    if matmul is not None:
+        for _ in range(iters):
+            R = torch.maximum(R, matmul(R, R))
+        return R
+    bufs = (torch.empty_like(M), torch.empty_like(M))
+    for i in range(iters):
+        R = bool_semiring.closure_step(R, out=bufs[i % 2])
+    return R
+
+
+def _all_mr_reach(A: torch.Tensor, mrs: Tuple[LabelSeq, ...], n: int,
+                  matmul: Optional[MatMul] = None) -> torch.Tensor:
+    """Stack of ``R_L`` for every MR (C, n_pad, n_pad), over the padded
+    adjacency ``A``, with the doubling count of the unpadded ``n``."""
+    return torch.stack([plus_closure(mr_step_matrix(A, mr, matmul),
+                                     n_iters=_n_iters(n), matmul=matmul)
+                        for mr in mrs])
+
+
+def label_adjacency(graph: LabeledGraph, device) -> torch.Tensor:
+    """Dense (|L|, n_pad, n_pad) float32 0/1 stack: ``graph.
+    label_adjacency`` padded with zero rows and columns to a multiple of
+    the kernel tile, built on ``device`` from the edge list (no host copy
+    of the 4 |L| n^2 bytes)."""
+    n = graph.num_vertices
+    n_pad = -(-max(n, 1) // bool_semiring.TILE) * bool_semiring.TILE
+    A = torch.zeros((graph.num_labels, n_pad, n_pad), dtype=torch.float32,
+                    device=device)
+    e = torch.from_numpy(np.asarray(graph.edges, np.int64)).to(device)
+    if len(e):
+        A[e[:, 1], e[:, 0], e[:, 2]] = 1
+    return A
+
+
+@dataclass
+class DenseEngine:
+    """All-pairs ``S^k`` on device — the analog of the paper's ETC."""
+
+    graph: LabeledGraph
+    k: int
+    mrs: Tuple[LabelSeq, ...]
+    mr_ids: Dict[LabelSeq, int]
+    reach: np.ndarray  # (C, n, n) bool — reach[c, u, v] = u ~~mr_c^+~~> v
+
+    @staticmethod
+    def build(graph: LabeledGraph, k: int,
+              matmul: Optional[MatMul] = None,
+              device="cuda") -> "DenseEngine":
+        dev = resolve_device(device)
+        n = graph.num_vertices
+        mrs = enumerate_mrs(graph.num_labels, k)
+        A = label_adjacency(graph, dev)
+        R = _all_mr_reach(A, mrs, n, matmul)
+        del A
+        reach = (R[:, :n, :n] > 0).cpu().numpy()
+        return DenseEngine(graph, k, mrs, mr_id_space(graph.num_labels, k),
+                           reach)
+
+    def query(self, s: int, t: int, L: Sequence[int]) -> bool:
+        c = self.mr_ids.get(tuple(L))
+        if c is None:
+            return False
+        return bool(self.reach[c, s, t])
+
+    def s_k(self, u: int, v: int) -> set:
+        return {self.mrs[c] for c in range(len(self.mrs))
+                if self.reach[c, u, v]}
+
+    def num_true_pairs(self) -> int:
+        return int(self.reach.sum())
+
+
+# ------------------------------------------------------------------ #
+# Hub-batched condensed 2-hop build (device Algorithm 2)
+# ------------------------------------------------------------------ #
+def _hub_batch_step(OUT: torch.Tensor, IN: torch.Tensor, R: torch.Tensor,
+                    aid: torch.Tensor, hubs: torch.Tensor) -> None:
+    """Add entries for one batch of hubs with PR1/PR2 masks, updating
+    ``OUT`` and ``IN`` in place (the reference donates them to jit).
+
+    OUT[c, y, x] = 1 iff (x, mr_c) in L_out(y);  IN[c, y, x] similarly.
+    For hub h (column/row slices of R):
+      backward (L_out additions at every y reaching h):
+        cand = R[c, :, h] & aid(h) <= aid(y) & ~Query(y, h, mr_c)
+      forward (L_in additions at every y reached from h): symmetric.
+    Query(s, t, c) = OUT[c,s,t] | IN[c,t,s] | OR_x OUT[c,s,x] & IN[c,t,x].
+    """
+    dtypef = OUT.dtype
+    aid_h = aid[hubs]                                    # (B,)
+    pr2 = (aid_h[None, :] <= aid[:, None]).to(dtypef)    # (n, B) keep-mask
+
+    # ---- backward: entries (h, c) at L_out(y) ----
+    reach_to_h = R[:, :, hubs]                           # (C, n, B)
+    IN_h = IN[:, hubs, :]                                # (C, B, n)
+    # Case-1 coverage: OR_x OUT[c,y,x] & IN[c,h,x]
+    cov1 = torch.bmm(OUT, IN_h.transpose(1, 2)) > 0
+    cov2 = OUT[:, :, hubs] > 0                           # direct (h,c) there
+    cov3 = IN_h.transpose(1, 2) > 0                      # (y, c) in L_in(h)?
+    covered = cov1 | cov2 | cov3
+    cand_out = reach_to_h * pr2[None] * (~covered).to(dtypef)
+    OUT[:, :, hubs] = torch.maximum(OUT[:, :, hubs], cand_out)
+
+    # ---- forward: entries (h, c) at L_in(y) ----
+    reach_from_h = R[:, hubs, :].transpose(1, 2)         # (C, n, B)
+    OUT_h = OUT[:, hubs, :]                              # (C, B, n) updated!
+    cov1f = torch.bmm(IN, OUT_h.transpose(1, 2)) > 0
+    cov2f = IN[:, :, hubs] > 0
+    cov3f = OUT_h.transpose(1, 2) > 0                    # (t, c) in L_out(h)
+    coveredf = cov1f | cov2f | cov3f
+    cand_in = reach_from_h * pr2[None] * (~coveredf).to(dtypef)
+    IN[:, :, hubs] = torch.maximum(IN[:, :, hubs], cand_in)
+
+
+def build_condensed_device(graph: LabeledGraph, k: int,
+                           hub_batch: int = 1,
+                           matmul: Optional[MatMul] = None,
+                           reach: Optional[np.ndarray] = None,
+                           device="cuda") -> Tuple[RLCIndex, DenseEngine]:
+    """Device-side condensed RLC index build (see module docstring).
+
+    ``reach`` (a :attr:`DenseEngine.reach`) skips the engine build. Only
+    the non-zero ``(c, y, x)`` triples of the entry matrices leave the
+    device."""
+    dev = resolve_device(device)
+    if hub_batch < 1:
+        raise ValueError(f"hub_batch must be >= 1, not {hub_batch}")
+    eng = (DenseEngine(graph, k, enumerate_mrs(graph.num_labels, k),
+                       mr_id_space(graph.num_labels, k), reach)
+           if reach is not None
+           else DenseEngine.build(graph, k, matmul, device=dev))
+    n, C = graph.num_vertices, len(eng.mrs)
+    if eng.reach.shape != (C, n, n):
+        raise ValueError(f"reach must be ({C}, {n}, {n})")
+    aid = graph.access_ids()
+    R = torch.from_numpy(np.ascontiguousarray(eng.reach)).to(dev).float()
+    OUT = torch.zeros((C, n, n), dtype=torch.float32, device=dev)
+    IN = torch.zeros((C, n, n), dtype=torch.float32, device=dev)
+    aid_t = torch.from_numpy(aid.astype(np.int64)).to(dev)
+    order = torch.from_numpy(graph.access_order().astype(np.int64)).to(dev)
+    for i in range(0, n, hub_batch):
+        _hub_batch_step(OUT, IN, R, aid_t, order[i:i + hub_batch])
+    del R
+    idx = RLCIndex(n, k, aid)
+    for entries, add in ((OUT, idx.add_out), (IN, idx.add_in)):
+        cs, ys, xs = (t.cpu().numpy() for t in torch.nonzero(
+            entries > 0, as_tuple=True))
+        for c, y, x in zip(cs.tolist(), ys.tolist(), xs.tolist()):
+            add(y, x, eng.mrs[c])
+    return idx, eng

@@ -1,4 +1,4 @@
-"""Bit-packed frontier and adjacency layouts (32 vertices per int32 word).
+"""Bit-packed layouts (32 vertices per int32 word) and the packed product.
 
 The build's device waves never hold a dense adjacency stack: the label-
 sliced adjacency is stored with its rows bit-packed, ``(|L|, Vp, Vp // 32)``
@@ -8,13 +8,29 @@ layout (:mod:`repro_torch.kernels.label_frontier`). Bit ``j`` of word
 ``repro.kernels.bitpack.pack_bits``, with its uint32 words viewed as
 int32. The torch ``pack_bits``/``unpack_bits`` live in
 :mod:`repro_torch.kernels.ref`.
+
+:func:`bitpack_matmul` replaces the Pallas kernel
+``repro/kernels/bitpack.py::bitpack_matmul``: an OR-AND product whose right
+operand and output are packed words, launched from the frontier kernel's
+source (``csrc/label_frontier.cu``, entry point ``rlc_bitpack_matmul``).
 """
 from __future__ import annotations
+
+import ctypes
 
 import numpy as np
 import torch
 
-__all__ = ["pack_adjacency", "unpack_rows"]
+from ._build import Kernel
+from .ref import bitpack_matmul_ref
+
+__all__ = ["bitpack_matmul", "pack_adjacency", "unpack_rows"]
+
+KERNEL = Kernel("label_frontier", "rlc_bitpack_matmul",
+                [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
+                + [ctypes.c_void_p])
+_CHUNK = 4096      # columns compacted per pass (kChunk in the source)
+_SMEM = 48 * 1024  # the kernel's shared memory: W + _CHUNK int32 words
 
 
 def pack_adjacency(src: np.ndarray, lab: np.ndarray, dst: np.ndarray,
@@ -41,3 +57,40 @@ def unpack_rows(words: np.ndarray, V: int) -> np.ndarray:
     u = np.ascontiguousarray(words).view(np.uint32)
     bits = (u[..., None] >> np.arange(32, dtype=np.uint32)) & 1
     return bits.reshape(len(u), -1)[:, :V].astype(bool)
+
+
+def bitpack_matmul(a: torch.Tensor, b_packed: torch.Tensor) -> torch.Tensor:
+    """``out[m, w] = OR_k (a[m, k] > 0 ? b_packed[k, w] : 0)``, bitwise:
+    the OR-AND product with the right operand and the output bit-packed.
+
+    a: ``(M, K)`` float32; b_packed: ``(K, W)`` int32 words on the same
+    device, K and W independent; out: ``(M, W)`` int32 words. On a CPU
+    device this runs :func:`repro_torch.kernels.ref.bitpack_matmul_ref`;
+    on a CUDA device it launches the kernel (``rlc_bitpack_matmul`` in
+    ``csrc/label_frontier.cu``: one block per row of ``a`` compacts the
+    row's positive columns and ORs the selected words of ``b_packed``) or
+    raises."""
+    dev = a.device
+    if a.dtype != torch.float32 or a.dim() != 2 or not a.is_contiguous():
+        raise ValueError("a must be a contiguous (M, K) float32 tensor")
+    M, K = a.shape
+    if b_packed.dtype != torch.int32 or b_packed.device != dev \
+            or b_packed.dim() != 2 or b_packed.shape[0] != K \
+            or not b_packed.is_contiguous():
+        raise ValueError(f"b_packed must be a contiguous ({K}, W) int32 "
+                         "tensor on a's device")
+    W = b_packed.shape[1]
+    if dev.type == "cpu":
+        return bitpack_matmul_ref(a, b_packed)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    out = torch.empty((M, W), dtype=torch.int32, device=dev)
+    if M == 0 or W == 0:
+        return out
+    if 4 * (W + _CHUNK) > _SMEM:
+        raise ValueError(f"W={W} exceeds the kernel's shared memory")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        KERNEL(a.data_ptr(), b_packed.data_ptr(), out.data_ptr(), M, K, W,
+               stream)
+    return out

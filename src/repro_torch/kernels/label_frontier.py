@@ -1,4 +1,4 @@
-"""One label-guided frontier wave of the index build, bit-packed output.
+"""Label-guided frontier waves: the index build's, and the JAX surface's.
 
 The CUDA kernel (``csrc/label_frontier.cu``) replaces the Pallas kernel
 ``repro/kernels/label_frontier.py::frontier_step_many`` and fuses the
@@ -11,6 +11,18 @@ pack_adjacency`), so a wave reads only the packed rows of the frontier's
 vertices and ORs whole words. The kernel is bound by those bytes; one
 block per frontier row compacts the row's non-zeros and keeps its result
 words in shared memory.
+
+Two more functions of ``repro/kernels/label_frontier.py`` keep its dense
+float32 layout at their signatures:
+
+* :func:`frontier_step` — one label for the whole batch, ``(F @ A[label])
+  > 0``; it launches the ``bool_matmul`` kernel
+  (:mod:`repro_torch.kernels.bool_semiring`) on the ``A[label]`` slice in
+  place, with a launch count of its own.
+* :func:`frontier_steps` — ``T`` chained waves with a row permutation
+  after each; it packs ``A`` once and runs one wave of the kernel above
+  per step, through an entry point whose store writes row ``r``'s result,
+  unpacked, into row ``dst[t, r]`` of the next frontier.
 """
 from __future__ import annotations
 
@@ -20,12 +32,18 @@ import numpy as np
 import torch
 
 from ._build import Kernel
-from .ref import frontier_step_many_ref
+from .bitpack import _CHUNK, _SMEM
+from .bool_semiring import _ARGS_MM, _check_operands, launch_matmul
+from .ref import (frontier_step_many_ref, frontier_step_ref,
+                  frontier_steps_ref, pack_bits)
 
 KERNEL = Kernel("label_frontier", "rlc_frontier_step_many",
                 [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
                 + [ctypes.c_void_p])
-_CHUNK = 4096  # frontier columns compacted per pass (kChunk in the source)
+STEP_KERNEL = Kernel("bool_semiring", "rlc_bool_matmul", _ARGS_MM)
+STEPS_KERNEL = Kernel("label_frontier", "rlc_frontier_step_many_dst",
+                      [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
+                      + [ctypes.c_void_p])
 
 
 def frontier_step_many(frontier: torch.Tensor, A_packed: torch.Tensor,
@@ -65,10 +83,102 @@ def frontier_step_many(frontier: torch.Tensor, A_packed: torch.Tensor,
     out = torch.empty((R, W), dtype=torch.int32, device=dev)
     if R == 0:
         return out
-    if 4 * (W + _CHUNK) > 48 * 1024:
+    if 4 * (W + _CHUNK) > _SMEM:
         raise ValueError(f"Vp={Vp} exceeds the kernel's shared memory")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         KERNEL(frontier.data_ptr(), A_packed.data_ptr(), labels.data_ptr(),
                out.data_ptr(), R, Vp, W, stream)
     return out
+
+
+def _label(label, num_labels: int) -> int:
+    lab = int(label)
+    if not 0 <= lab < num_labels:
+        raise IndexError(f"label {lab} outside [0, {num_labels})")
+    return lab
+
+
+def frontier_step(frontier: torch.Tensor, A: torch.Tensor, label
+                  ) -> torch.Tensor:
+    """``next[b, v] = OR_u frontier[b, u] & A[label, u, v]``.
+
+    frontier: ``(B, V)`` 0/1; A: ``(|L|, V, V)`` dense 0/1 of the same
+    dtype (float32 or bfloat16) and device; label: an integer, range-
+    checked. On a CPU device this runs :func:`repro_torch.kernels.ref.
+    frontier_step_ref`; on a CUDA device it launches the ``bool_matmul``
+    kernel on ``A[label]`` (no copy) or raises."""
+    if A.dim() != 3 or A.shape[1:] != (frontier.shape[-1],) * 2:
+        raise ValueError(f"A must be (|L|, V, V) with V = "
+                         f"{frontier.shape[-1]}")
+    lab = _label(label, A.shape[0])
+    _check_operands(frontier, A[lab])
+    if frontier.device.type == "cpu":
+        return frontier_step_ref(frontier, A, lab)
+    out = torch.empty_like(frontier)
+    launch_matmul(STEP_KERNEL, frontier, A[lab], out)
+    return out
+
+
+def _schedule(x, name: str, shape) -> np.ndarray:
+    x = np.asarray(x)
+    if x.shape != shape or x.dtype.kind not in "iu":
+        raise ValueError(f"{name} must be {shape} integers")
+    return x.astype(np.int32)
+
+
+def frontier_steps(frontier: torch.Tensor, A: torch.Tensor, labels, dst
+                   ) -> torch.Tensor:
+    """``T`` chained waves: after wave ``t``, row ``r``'s expansion along
+    ``A[labels[t, r]]`` lands in row ``dst[t, r]``. No pruning between
+    waves.
+
+    frontier: ``(R, V)`` float32 0/1; A: ``(|L|, V, V)`` float32 0/1 on
+    the same device; labels, dst: ``(T, R)`` host integer arrays, labels
+    range-checked and each ``dst[t]`` checked to be a permutation. On a
+    CPU device this runs :func:`repro_torch.kernels.ref.
+    frontier_steps_ref`; on a CUDA device it packs ``A`` once and
+    launches the kernel ``T`` times, or raises."""
+    dev = frontier.device
+    if frontier.dtype != torch.float32 or frontier.dim() != 2:
+        raise ValueError("frontier must be an (R, V) float32 tensor")
+    R, V = frontier.shape
+    if A.dtype != torch.float32 or A.device != dev or A.dim() != 3 \
+            or A.shape[1:] != (V, V):
+        raise ValueError(f"A must be an (|L|, {V}, {V}) float32 tensor on "
+                         "the frontier's device")
+    nl = A.shape[0]
+    labels = np.asarray(labels)
+    T = labels.shape[0] if labels.ndim == 2 else -1
+    labels = _schedule(labels, "labels", (T, R))
+    dst = _schedule(dst, "dst", (T, R))
+    if labels.size and not (labels.min() >= 0 and labels.max() < nl):
+        raise IndexError(f"labels outside [0, {nl})")
+    if (np.sort(dst, axis=1) != np.arange(R)).any():
+        raise ValueError("each dst[t] must be a permutation of the rows")
+    if dev.type == "cpu":
+        return frontier_steps_ref(frontier, A, torch.from_numpy(labels),
+                                  torch.from_numpy(dst))
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    Vp = -(-V // 32) * 32
+    W = Vp // 32
+    if 4 * (W + _CHUNK) > _SMEM:
+        raise ValueError(f"V={V} exceeds the kernel's shared memory")
+    F = frontier.new_zeros((R, Vp))   # never the caller's tensor
+    F[:, :V] = frontier
+    if T == 0 or R == 0:
+        return F[:, :V].clone()
+    pad = (0, Vp - V) * 2
+    A_packed = torch.stack([pack_bits(torch.nn.functional.pad(A[lab], pad))
+                            for lab in range(nl)])
+    labels, dst = (torch.from_numpy(x).to(dev) for x in (labels, dst))
+    out = torch.empty_like(F)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        for t in range(T):
+            STEPS_KERNEL(F.data_ptr(), A_packed.data_ptr(),
+                         labels[t].data_ptr(), dst[t].data_ptr(),
+                         out.data_ptr(), R, Vp, W, stream)
+            F, out = out, F
+    return F[:, :V] if Vp == V else F[:, :V].contiguous()

@@ -1,9 +1,12 @@
 """Plain PyTorch versions of the hand-written kernels.
 
-Each function is the semantic ground truth of one kernel in this package:
-the wrappers run it for tensors that lie on the CPU, and the comparisons
-on the card hold each kernel against it bit for bit (everything here is
-OR-AND over 0/1 values or integer compares, so equality is exact).
+Each function is the semantic ground truth of one kernel in this package,
+ported from ``repro/kernels/ref.py``: the wrappers run it for tensors that
+lie on the CPU, and the comparisons on the card hold each kernel against
+it bit for bit (everything here is OR-AND over 0/1 values or integer
+compares, so equality is exact). The float32 products sum 0/1 values, so
+they are exact with or without TF32 (0 and 1 are exact in it, and the
+sums stay far below 2**24); PyTorch's default, TF32 off, is assumed.
 
 Packed words are int32 bit patterns: bit ``j`` of word ``w`` is column
 ``32 * w + j``, the layout of ``repro.kernels.bitpack.pack_bits`` with its
@@ -34,6 +37,59 @@ def unpack_bits(xp: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
     """``(..., W)`` int32 words -> ``(..., 32 * W)`` 0/1 of ``dtype``."""
     bits = (xp.to(torch.int64)[..., None] >> _SHIFTS.to(xp.device)) & 1
     return bits.reshape(*xp.shape[:-1], xp.shape[-1] * 32).to(dtype)
+
+
+def bool_matmul_ref(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """OR-AND semiring product of 0/1 matrices, in ``a``'s dtype
+    (float32 accumulation, as ``preferred_element_type`` in the JAX
+    reference)."""
+    return (torch.matmul(a.float(), b.float()) > 0).to(a.dtype)
+
+
+def fused_closure_step_ref(r: torch.Tensor) -> torch.Tensor:
+    """One log-doubling step ``R | R @ R``."""
+    return torch.maximum(r, bool_matmul_ref(r, r))
+
+
+def bitpack_matmul_ref(a: torch.Tensor, b_packed: torch.Tensor
+                       ) -> torch.Tensor:
+    """``out[m, w] = OR_k (a[m, k] > 0 ? b_packed[k, w] : 0)``, bitwise.
+
+    a: ``(M, K)`` float32; b_packed: ``(K, W)`` int32 words. The reference
+    ORs the masked words over K through an ``(M, K, W)`` intermediate; this
+    computes the same bits as one float32 product of the 0/1 mask with the
+    unpacked words (a bit is set iff some selected row has it), which
+    needs ``(K, 32 W)`` instead of ``(M, K, W)`` elements."""
+    mask = (a > 0).float()
+    return pack_bits(mask @ unpack_bits(b_packed))
+
+
+def frontier_step_ref(frontier: torch.Tensor, A: torch.Tensor,
+                      label: int) -> torch.Tensor:
+    """Product-automaton step: ``next[b, v] = OR_u frontier[b, u] &
+    A[label, u, v]``."""
+    return bool_matmul_ref(frontier, A[label])
+
+
+def frontier_steps_ref(frontier: torch.Tensor, A: torch.Tensor,
+                       labels: torch.Tensor, dst: torch.Tensor
+                       ) -> torch.Tensor:
+    """``T`` chained waves: wave ``t`` advances row ``r`` along
+    ``A[labels[t, r]]`` and its result lands in row ``dst[t, r]`` (each
+    ``dst[t]`` a permutation), as ``lax.scan`` over ``frontier_step_many``
+    in the JAX package.
+
+    frontier: ``(R, V)``; A: ``(|L|, V, V)``; labels, dst: ``(T, R)``."""
+    F = frontier
+    for labs, d in zip(labels.long().tolist(), dst.long().tolist()):
+        G = torch.empty_like(F)
+        labs = torch.tensor(labs)
+        for lab in torch.unique(labs).tolist():
+            rows = torch.nonzero(labs == lab).flatten().to(F.device)
+            G[rows] = bool_matmul_ref(F[rows], A[lab])
+        F = torch.zeros_like(G)
+        F[torch.tensor(d, device=F.device)] = G
+    return F
 
 
 def mergejoin_ref(out_hub, out_mr, in_hub, in_mr, s, t, mr,

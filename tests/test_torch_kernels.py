@@ -187,3 +187,222 @@ def test_cuda_frontier_matches_plain(R, V, L, density):
     assert label_frontier.KERNEL.launches == before + 1
     want = ref.frontier_step_many_ref(f, A, torch.from_numpy(labels))
     assert torch.equal(got, want)
+
+
+# ------------------------------------------------------------------ #
+# The dense engine's kernels and the rest of the kernel surface
+# ------------------------------------------------------------------ #
+from repro_torch.kernels import bool_semiring, ops  # noqa: E402
+
+BM_SHAPES = [(128, 128, 128), (64, 64, 64), (100, 130, 90), (8, 8, 8)]
+
+
+def _jax_ops():
+    jops = pytest.importorskip("repro.kernels.ops")
+    import jax.numpy as jnp
+    return jops, jnp
+
+
+def _as_np(x):
+    return x.float().numpy() if x.dtype == torch.bfloat16 else x.numpy()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("m,k,n", BM_SHAPES)
+def test_plain_bool_matmul_matches_pallas(m, k, n, dtype):
+    jops, jnp = _jax_ops()
+    rng = np.random.default_rng(m * 1000 + k * 10 + n)
+    a, b = rand_bool(rng, (m, k), 0.2), rand_bool(rng, (k, n), 0.2)
+    want = jops.bool_matmul(jnp.asarray(a, dtype), jnp.asarray(b, dtype),
+                            interpret=True)
+    tdt = getattr(torch, dtype)
+    got = ops.bool_matmul(torch.from_numpy(a).to(tdt),
+                          torch.from_numpy(b).to(tdt))
+    assert got.dtype == tdt
+    np.testing.assert_array_equal(_as_np(got),
+                                  np.asarray(want, np.float32))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n", [64, 200])
+def test_plain_closure_step_matches_pallas(n, dtype):
+    jops, jnp = _jax_ops()
+    r = rand_bool(np.random.default_rng(n), (n, n), 0.05)
+    want = np.asarray(jops.closure_step(jnp.asarray(r, dtype),
+                                        interpret=True), np.float32)
+    tr = torch.from_numpy(r).to(getattr(torch, dtype))
+    got = ops.closure_step(tr)
+    assert got.dtype == tr.dtype
+    np.testing.assert_array_equal(_as_np(got), want)
+    out = torch.full((n, n), 7.0, dtype=tr.dtype)
+    assert ops.closure_step(tr, out=out) is out
+    np.testing.assert_array_equal(_as_np(out), want)
+
+
+def test_plain_bitpack_matmul_matches_pallas():
+    jops, jnp = _jax_ops()
+    from repro.kernels.bitpack import pack_bits as j_pack_bits
+    m, k, n = 32, 100, 512
+    rng = np.random.default_rng(m + k + n)
+    a, b = rand_bool(rng, (m, k), 0.15), rand_bool(rng, (k, n), 0.15)
+    b[:, 31::32] = 1                      # the sign bit of every word
+    want = jops.bitpack_matmul(jnp.asarray(a), j_pack_bits(jnp.asarray(b)),
+                               interpret=True)
+    got = ops.bitpack_matmul(torch.from_numpy(a),
+                             ops.pack_bits(torch.from_numpy(b)))
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(),
+                                  np.asarray(want).view(np.int32))
+
+
+def test_plain_frontier_step_matches_pallas():
+    jops, jnp = _jax_ops()
+    B, V, L = 64, 200, 2
+    rng = np.random.default_rng(B + V + L)
+    f, A = rand_bool(rng, (B, V), 0.1), rand_bool(rng, (L, V, V), 0.05)
+    for lab in range(L):
+        want = jops.frontier_step(jnp.asarray(f), jnp.asarray(A),
+                                  jnp.asarray(lab), interpret=True)
+        got = ops.frontier_step(torch.from_numpy(f), torch.from_numpy(A),
+                                np.int32(lab))
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def frontier_steps_case():
+    """The inputs of tests/test_kernels.py's frontier_steps test."""
+    rng = np.random.default_rng(42)
+    R, V, L, T = 5, 128, 3, 4
+    f = rand_bool(rng, (R, V), 0.08)
+    A = rand_bool(rng, (L, V, V), 0.04)
+    labels = rng.integers(0, L, (T, R)).astype(np.int32)
+    dst = np.stack([rng.permutation(R) for _ in range(T)]).astype(np.int32)
+    return f, A, labels, dst
+
+
+def test_plain_frontier_steps_matches_pallas():
+    pytest.importorskip("repro.kernels.label_frontier")
+    import jax.numpy as jnp
+    from repro.kernels.label_frontier import frontier_steps as j_steps
+    f, A, labels, dst = frontier_steps_case()
+    want = j_steps(jnp.asarray(f), jnp.asarray(A), jnp.asarray(labels),
+                   jnp.asarray(dst), interpret=True)
+    got = label_frontier.frontier_steps(torch.from_numpy(f),
+                                        torch.from_numpy(A), labels, dst)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def test_plain_mergejoin_query_surface_matches_pallas():
+    jops, jnp = _jax_ops()
+    oh, om, ih, im, s, t, mr = mergejoin_case(64, 24, 64, 0, 64, 3)
+    want = jops.mergejoin_query(*(jnp.asarray(a) for a in
+                                  (oh, om, ih, im, s, t, mr)),
+                                interpret=True)
+    got = ops.mergejoin_query(*(torch.from_numpy(a) for a in
+                                (oh, om, ih, im)), s, t, mr)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def test_new_wrappers_on_cpu_never_launch():
+    before = {k: v.launches for k, v in KERNELS.items()}
+    f, A, labels, dst = (torch.from_numpy(x) if x.dtype == np.float32
+                         else x for x in frontier_steps_case())
+    ops.bool_matmul(f, A[0])
+    ops.closure_step(A[1])
+    ops.bitpack_matmul(f, ops.pack_bits(A[2]))
+    ops.frontier_step(f, A, 2)
+    label_frontier.frontier_steps(f, A, labels, dst)
+    assert {k: v.launches for k, v in KERNELS.items()} == before
+
+
+def test_new_wrappers_check_their_arguments():
+    f, A, labels, dst = frontier_steps_case()
+    f, A = torch.from_numpy(f), torch.from_numpy(A)
+    with pytest.raises(IndexError):
+        ops.frontier_step(f, A, 3)
+    with pytest.raises(IndexError):
+        label_frontier.frontier_steps(f, A, labels + 1, dst)
+    with pytest.raises(ValueError):               # dst[t] not a permutation
+        label_frontier.frontier_steps(f, A, labels, np.zeros_like(dst))
+    with pytest.raises(ValueError):               # inner dimensions
+        ops.bool_matmul(f, A[0, :64])
+    with pytest.raises(ValueError):               # mixed dtypes
+        ops.bool_matmul(f, A[0].to(torch.bfloat16))
+    with pytest.raises(ValueError):               # out aliases r
+        ops.closure_step(A[0], out=A[1])
+    with pytest.raises(ValueError):               # K of b_packed
+        ops.bitpack_matmul(f, torch.zeros((7, 4), dtype=torch.int32))
+
+
+@needs_cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("m,k,n", BM_SHAPES + [(300, 6656, 6656),
+                                               (6541, 6541, 131),
+                                               (129, 33, 257)])
+def test_cuda_bool_matmul_matches_plain(m, k, n, dtype):
+    rng = np.random.default_rng(m + k + n)
+    tdt = getattr(torch, dtype)
+    a = torch.from_numpy(rand_bool(rng, (m, k), 0.01)).to("cuda", tdt)
+    b = torch.from_numpy(rand_bool(rng, (k, n), 0.01)).to("cuda", tdt)
+    before = bool_semiring.MATMUL_KERNEL.launches
+    got = ops.bool_matmul(a, b)
+    torch.cuda.synchronize()
+    assert bool_semiring.MATMUL_KERNEL.launches == before + 1
+    assert torch.equal(got, ref.bool_matmul_ref(a, b))
+
+
+@needs_cuda
+@pytest.mark.parametrize("n", [64, 200, 1000, 6541])
+def test_cuda_closure_step_matches_plain(n):
+    r = torch.from_numpy(rand_bool(np.random.default_rng(n), (n, n),
+                                   2.0 / n)).cuda()
+    before = bool_semiring.CLOSURE_KERNEL.launches
+    got = ops.closure_step(r)
+    torch.cuda.synchronize()
+    assert bool_semiring.CLOSURE_KERNEL.launches == before + 1
+    assert torch.equal(got, ref.fused_closure_step_ref(r))
+
+
+@needs_cuda
+@pytest.mark.parametrize("m,k,n,density", [(32, 100, 512, 0.15),
+                                           (6656, 6656, 6656, 0.001),
+                                           (7, 5000, 96, 0.5)])
+def test_cuda_bitpack_matmul_matches_plain(m, k, n, density):
+    rng = np.random.default_rng(m + k + n)
+    a = torch.from_numpy(rand_bool(rng, (m, k), density)).cuda()
+    b = ref.pack_bits(torch.from_numpy(rand_bool(rng, (k, n), 0.01)).cuda())
+    before = bitpack.KERNEL.launches
+    got = ops.bitpack_matmul(a, b)
+    torch.cuda.synchronize()
+    assert bitpack.KERNEL.launches == before + 1
+    assert torch.equal(got, ref.bitpack_matmul_ref(a, b))
+
+
+@needs_cuda
+@pytest.mark.parametrize("B,V,L", [(64, 200, 2), (300, 6656, 3)])
+def test_cuda_frontier_step_matches_plain(B, V, L):
+    rng = np.random.default_rng(B + V + L)
+    f = torch.from_numpy(rand_bool(rng, (B, V), 0.01)).cuda()
+    A = torch.from_numpy(rand_bool(rng, (L, V, V), 0.002)).cuda()
+    before = label_frontier.STEP_KERNEL.launches
+    for lab in range(L):
+        got = ops.frontier_step(f, A, lab)
+        torch.cuda.synchronize()
+        assert torch.equal(got, ref.frontier_step_ref(f, A, lab))
+    assert label_frontier.STEP_KERNEL.launches == before + L
+
+
+@needs_cuda
+@pytest.mark.parametrize("R,V,T", [(5, 128, 4), (300, 6541, 2)])
+def test_cuda_frontier_steps_matches_plain(R, V, T):
+    rng = np.random.default_rng(R + V + T)
+    f = torch.from_numpy(rand_bool(rng, (R, V), 0.01)).cuda()
+    A = torch.from_numpy(rand_bool(rng, (3, V, V), 0.002)).cuda()
+    labels = rng.integers(0, 3, (T, R))
+    dst = np.stack([rng.permutation(R) for _ in range(T)])
+    before = label_frontier.STEPS_KERNEL.launches
+    got = label_frontier.frontier_steps(f, A, labels, dst)
+    torch.cuda.synchronize()
+    assert label_frontier.STEPS_KERNEL.launches == before + T
+    want = ref.frontier_steps_ref(f, A, torch.from_numpy(labels),
+                                  torch.from_numpy(dst))
+    assert torch.equal(got, want)
