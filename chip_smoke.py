@@ -26,10 +26,14 @@ points a user calls:
    ``frontier_step``, ``frontier_steps``) against their plain versions on
    the card, bit for bit, at the dense engine's shapes (``n = 6541``
    padded to 6656), and times each beside its plain version and, where
-   one PyTorch call computes the same function, that call;
-7. the dense path: ``DenseEngine.build`` on the card (every product
-   through the two semiring kernels; its ``reach`` must equal the plain
-   path's), ``build_condensed_device`` at ``hub_batch = 8`` and an
+   one PyTorch call computes the same function, that call; the three
+   semiring rows (``bool_matmul``, ``closure_step``, ``frontier_step``)
+   are timed in float32 (the kernels line) and in bf16, each beside
+   ``torch.matmul`` in the same dtype, with the route (wgmma or split-K
+   kernel, staged or not) each shape took;
+7. the dense path: ``DenseEngine.build`` on the card (bf16 stacks, every
+   product through the semiring kernels; its ``reach`` must equal the
+   plain path's), ``build_condensed_device`` at ``hub_batch = 8`` and an
    ``RLCService`` over the condensed index, whose answers to 64 sources x
    all targets x all MRs, through the merge kernel, must equal ``reach``
    and the step-3 index's answers;
@@ -46,7 +50,9 @@ result. The last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import ctypes
 import json
+import re
 import subprocess
 import sys
 import time
@@ -204,9 +210,33 @@ def timed(name: str, err: float, kernel, plain, library, nbytes: float,
     b, by = bound_ms(nbytes, ops, ops_per_s)
     lib = f"{library_ms:.4f} ms" if library_ms is not None else "none"
     log(f"{name} {note}: max abs err {err}; kernel {ms:.4f} ms, plain "
-        f"{plain_ms:.4f} ms, library {lib}, bound {b:.5f} ms ({by})")
+        f"{plain_ms:.4f} ms, library {lib}, bound {b:.5f} ms ({by}, "
+        f"{b / ms:.1%} of it reached)")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b,
                 bound_by=by, library_ms=library_ms)
+
+
+def route_note(a, b) -> str:
+    """The semiring kernel that the product ``a @ b`` is routed to."""
+    from repro_torch.kernels import bool_semiring
+    rt = bool_semiring.route_of(a, b)
+    staged = [side for side, on in (("a", rt.stage_a), ("b", rt.stage_b))
+              if on]
+    return f"route {rt.kernel}" + (f", {'+'.join(staged)} staged"
+                                   if staged else "")
+
+
+def bf16_timing(name: str, kernel, library, nbytes: float, ops: float,
+                note: str) -> None:
+    """Time a semiring entry point on bf16 operands beside
+    ``torch.matmul`` on the same bf16 operands (the main path's dtype on
+    the dense engine); logged, not part of the kernels line."""
+    ms = cuda_ms(kernel, 10)
+    lib = cuda_ms(library, 5)
+    b, by = bound_ms(nbytes, ops, TENSOR_OPS_PER_S)
+    log(f"{name} bf16 {note}: kernel {ms:.4f} ms, library {lib:.4f} ms "
+        f"(torch.matmul, bf16), bound {b:.5f} ms ({by}, {b / ms:.1%} of "
+        f"it reached)")
 
 
 def packed_rows_bytes(F, labels, Vp: int, W: int) -> int:
@@ -232,7 +262,7 @@ def check_dense_kernels(torch, g, rng) -> dict:
     res = {}
 
     # bool_matmul: one step product of the MR (0, 1), f32 and bf16, and
-    # once unpadded (n = 6541: the kernel's masked, scalar-load path)
+    # once unpadded (n = 6541: a pitch that only the staged path reads)
     a, b = A[0], A[1]
     got = ops.bool_matmul(a, b)
     err = compare("bool_matmul", got, ref.bool_matmul_ref(a, b))
@@ -241,16 +271,17 @@ def check_dense_kernels(torch, g, rng) -> dict:
                         f"unpadded n={n}")):
         ok = compare(f"bool_matmul {what}", ops.bool_matmul(x, y),
                      ref.bool_matmul_ref(x, y))
-        log(f"bool_matmul {what}: max abs err {ok}")
+        log(f"bool_matmul {what} ({route_note(x, y)}): max abs err {ok}")
     ab, bb = a.bfloat16(), b.bfloat16()
-    log(f"bool_matmul bf16 n={n_pad}: kernel "
-        f"{cuda_ms(lambda: ops.bool_matmul(ab, bb), 10):.4f} ms")
+    bf16_timing("bool_matmul", lambda: ops.bool_matmul(ab, bb),
+                lambda: torch.matmul(ab, bb), 3 * n_pad * n_pad * 2,
+                2 * n_pad ** 3, f"{n_pad}^3, {route_note(ab, bb)}")
     del ab, bb
     res["bool_matmul"] = timed(
         "bool_matmul", err, lambda: ops.bool_matmul(a, b),
         lambda: ref.bool_matmul_ref(a, b), lambda: torch.matmul(a, b),
         3 * n_pad * n_pad * 4, 2 * n_pad ** 3, TENSOR_OPS_PER_S, 10,
-        f"f32 {n_pad}x{n_pad}x{n_pad}")
+        f"f32 {n_pad}x{n_pad}x{n_pad}, {route_note(a, b)}")
 
     # closure_step on that step matrix, the first doubling step's input
     M = got
@@ -260,12 +291,22 @@ def check_dense_kernels(torch, g, rng) -> dict:
     Mb = M.bfloat16()
     compare("closure_step bf16", ops.closure_step(Mb),
             ref.fused_closure_step_ref(Mb))
-    del Mb
+    Mu = M[:n, :n].contiguous()
+    compare(f"closure_step unpadded n={n}", ops.closure_step(Mu),
+            ref.fused_closure_step_ref(Mu))
+    log(f"closure_step unpadded n={n} ({route_note(Mu, Mu)}): max abs err "
+        f"0.0")
+    del Mu
+    outb = torch.empty_like(Mb)
+    bf16_timing("closure_step", lambda: ops.closure_step(Mb, out=outb),
+                lambda: torch.matmul(Mb, Mb), 2 * n_pad * n_pad * 2,
+                2 * n_pad ** 3, f"n={n_pad}, {route_note(Mb, Mb)}")
+    del Mb, outb
     res["closure_step"] = timed(
         "closure_step", err, lambda: ops.closure_step(M, out=out),
         lambda: ref.fused_closure_step_ref(M), lambda: torch.matmul(M, M),
         2 * n_pad * n_pad * 4, 2 * n_pad ** 3, TENSOR_OPS_PER_S, 10,
-        f"f32 n={n_pad}")
+        f"f32 n={n_pad}, {route_note(M, M)}")
 
     # bitpack_matmul: the step matrix against the packed A[2]
     P = ref.pack_bits(A[2])
@@ -289,12 +330,20 @@ def check_dense_kernels(torch, g, rng) -> dict:
     tF = torch.from_numpy(F).cuda()
     got = label_frontier.frontier_step(tF, A, 1)
     err = compare("frontier_step", got, ref.frontier_step_ref(tF, A, 1))
+    Fb, Ab = tF.bfloat16(), A.bfloat16()
+    compare("frontier_step bf16", label_frontier.frontier_step(Fb, Ab, 1),
+            ref.frontier_step_ref(Fb, Ab, 1))
+    bf16_timing("frontier_step", lambda: label_frontier.frontier_step(
+        Fb, Ab, 1), lambda: torch.matmul(Fb, Ab[1]),
+        (2 * B * n_pad + n_pad * n_pad) * 2, 2 * B * n_pad * n_pad,
+        f"B={B} V={n_pad}, {route_note(Fb, Ab[1])}")
+    del Fb, Ab
     res["frontier_step"] = timed(
         "frontier_step", err, lambda: label_frontier.frontier_step(tF, A, 1),
         lambda: ref.frontier_step_ref(tF, A, 1),
         lambda: torch.matmul(tF, A[1]),
         (2 * B * n_pad + n_pad * n_pad) * 4, 2 * B * n_pad * n_pad,
-        TENSOR_OPS_PER_S, 20, f"B={B} V={n_pad}")
+        TENSOR_OPS_PER_S, 20, f"B={B} V={n_pad}, {route_note(tF, A[1])}")
 
     # frontier_steps: R = 300, T = 2, a cyclic row shift after each wave
     T = 2
@@ -436,9 +485,19 @@ def main() -> int:
     logs = _build.build(["mergejoin", "label_frontier", "bool_semiring"])
     log(f"kernel build: {time.perf_counter() - t0:.2f} s")
     for src, text in logs.items():
+        kernel = "?"
         for line in text.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  {src}: {line.strip()}")
+            found = re.search(r"Compiling entry function '([^']+)'", line)
+            if found:   # the kernel's name and template arguments
+                kernel = re.sub(r"_ZN\w+?_cu_\w{8}\d*", "",
+                                found.group(1))[:60]
+            elif "registers" in line or "spill" in line:
+                log(f"  {src} {kernel}: {line.strip()}")
+    smem = _build.library("bool_semiring").rlc_semiring_smem_bytes
+    smem.argtypes, smem.restype = [ctypes.c_int] * 2, ctypes.c_int
+    log(f"  bool_semiring dynamic shared memory a block: wgmma "
+        f"{smem(0, 0)} B, split-K with float32 b {smem(1, 1)} B, with "
+        f"bf16 b {smem(1, 0)} B")
 
     t0 = time.perf_counter()
     g = barabasi_albert(**AD)

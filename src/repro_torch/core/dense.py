@@ -13,16 +13,18 @@ computation into boolean matrix-matrix products. This module provides:
   PR1 a vectorized coverage query, one matmul per hub batch; batch size 1
   reproduces the sequential pruning schedule).
 
-Boolean values ride in float32 (0/1). With no ``matmul`` given, the
-products run through the hand-written kernels of
+Boolean values ride as 0/1. With no ``matmul`` given, the engine keeps
+its adjacency and reach stacks in bf16 (exact for 0/1, half the bytes of
+float32, and the operand type the semiring kernels read without a
+staging pass), and the products run through the hand-written kernels of
 :mod:`repro_torch.kernels.bool_semiring` on a CUDA device (the plain
 versions on the CPU): the step chain through ``bool_matmul`` and each
 doubling step through the fused ``closure_step``, which computes the
 reference's ``max(R, matmul(R, R))`` in one launch. A caller-given
-``matmul`` keeps the reference's form. The engine pads the adjacency
-once to a multiple of the kernel tile (zero rows and columns add no
-paths) and takes the doubling count from the unpadded ``n``, as the
-reference does. The coverage products of the condensed build stay
+``matmul`` keeps float32 and the reference's form. The engine pads the
+adjacency once to a multiple of the kernel tile (zero rows and columns
+add no paths) and takes the doubling count from the unpadded ``n``, as
+the reference does. The coverage products of the condensed build stay
 ``torch.bmm``, as the JAX package leaves them to XLA. All products sum
 0/1 values in float32, exact whether or not TF32 is on; PyTorch's
 default (TF32 off) is assumed and not changed here.
@@ -100,14 +102,15 @@ def _all_mr_reach(A: torch.Tensor, mrs: Tuple[LabelSeq, ...], n: int,
                         for mr in mrs])
 
 
-def label_adjacency(graph: LabeledGraph, device) -> torch.Tensor:
-    """Dense (|L|, n_pad, n_pad) float32 0/1 stack: ``graph.
+def label_adjacency(graph: LabeledGraph, device,
+                    dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Dense (|L|, n_pad, n_pad) 0/1 stack of ``dtype``: ``graph.
     label_adjacency`` padded with zero rows and columns to a multiple of
     the kernel tile, built on ``device`` from the edge list (no host copy
-    of the 4 |L| n^2 bytes)."""
+    of the |L| n^2 values)."""
     n = graph.num_vertices
     n_pad = -(-max(n, 1) // bool_semiring.TILE) * bool_semiring.TILE
-    A = torch.zeros((graph.num_labels, n_pad, n_pad), dtype=torch.float32,
+    A = torch.zeros((graph.num_labels, n_pad, n_pad), dtype=dtype,
                     device=device)
     e = torch.from_numpy(np.asarray(graph.edges, np.int64)).to(device)
     if len(e):
@@ -132,7 +135,8 @@ class DenseEngine:
         dev = resolve_device(device)
         n = graph.num_vertices
         mrs = enumerate_mrs(graph.num_labels, k)
-        A = label_adjacency(graph, dev)
+        dtype = torch.float32 if matmul is not None else torch.bfloat16
+        A = label_adjacency(graph, dev, dtype)
         R = _all_mr_reach(A, mrs, n, matmul)
         del A
         reach = (R[:, :n, :n] > 0).cpu().numpy()

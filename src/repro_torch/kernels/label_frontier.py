@@ -16,9 +16,10 @@ Two more functions of ``repro/kernels/label_frontier.py`` keep its dense
 float32 layout at their signatures:
 
 * :func:`frontier_step` — one label for the whole batch, ``(F @ A[label])
-  > 0``; it launches the ``bool_matmul`` kernel
-  (:mod:`repro_torch.kernels.bool_semiring`) on the ``A[label]`` slice in
-  place, with a launch count of its own.
+  > 0``; it goes through the router of ``bool_matmul``
+  (:func:`repro_torch.kernels.bool_semiring.route`: the split-K kernel at
+  a few hundred rows) on the ``A[label]`` slice in place, with a launch
+  count of its own.
 * :func:`frontier_steps` — ``T`` chained waves with a row permutation
   after each; it packs ``A`` once and runs one wave of the kernel above
   per step, through an entry point whose store writes row ``r``'s result,
@@ -106,8 +107,9 @@ def frontier_step(frontier: torch.Tensor, A: torch.Tensor, label
     frontier: ``(B, V)`` 0/1; A: ``(|L|, V, V)`` dense 0/1 of the same
     dtype (float32 or bfloat16) and device; label: an integer, range-
     checked. On a CPU device this runs :func:`repro_torch.kernels.ref.
-    frontier_step_ref`; on a CUDA device it launches the ``bool_matmul``
-    kernel on ``A[label]`` (no copy) or raises."""
+    frontier_step_ref`; on a CUDA device it launches the kernel that
+    ``bool_semiring.route`` picks on ``A[label]`` (no copy unless the
+    route stages it) or raises."""
     if A.dim() != 3 or A.shape[1:] != (frontier.shape[-1],) * 2:
         raise ValueError(f"A must be (|L|, V, V) with V = "
                          f"{frontier.shape[-1]}")

@@ -92,6 +92,38 @@ def test_dense_reach_matches_jax_pallas_hook_and_own_hook():
     np.testing.assert_array_equal(hooked.reach, want.reach)
 
 
+@pytest.mark.parametrize("k", [1, 2])
+def test_dense_engine_bf16_stack_matches_jax(k, monkeypatch):
+    """With no ``matmul`` the engine keeps its stacks in bf16 (exact for
+    0/1); its reach still equals the JAX package's float32 reach, and a
+    caller-given ``matmul`` keeps float32."""
+    jdense = pytest.importorskip("repro.core.dense")
+    jg, tg = graphs(7 + k, G12)
+    seen = []
+    real = tdense._all_mr_reach
+
+    def spy(A, mrs, n, matmul=None):
+        seen.append(A.dtype)
+        R = real(A, mrs, n, matmul)
+        seen.append(R.dtype)
+        return R
+
+    monkeypatch.setattr(tdense, "_all_mr_reach", spy)
+    got = tdense.DenseEngine.build(tg, k, device="cpu")
+    assert seen == [torch.bfloat16, torch.bfloat16]
+    np.testing.assert_array_equal(got.reach,
+                                  jdense.DenseEngine.build(jg, k).reach)
+    seen.clear()
+    tdense.DenseEngine.build(tg, k, matmul=tdense.bool_matmul,
+                             device="cpu")
+    assert seen == [torch.float32, torch.float32]
+    A = tdense.label_adjacency(tg, "cpu", torch.bfloat16)
+    assert A.dtype == torch.bfloat16 and A.shape[1] % 128 == 0
+    np.testing.assert_array_equal(
+        A[:, :12, :12].float().numpy() > 0,
+        tdense.label_adjacency(tg, "cpu")[:, :12, :12].numpy() > 0)
+
+
 def test_dense_engine_queries_fig2():
     from repro_torch.graphgen import fig2_graph
     g, names = fig2_graph()

@@ -406,3 +406,136 @@ def test_cuda_frontier_steps_matches_plain(R, V, T):
     want = ref.frontier_steps_ref(f, A, torch.from_numpy(labels),
                                   torch.from_numpy(dst))
     assert torch.equal(got, want)
+
+
+# ------------------------------------------------------------------ #
+# The router between the semiring's two kernels (a CPU function)
+# ------------------------------------------------------------------ #
+def _pitches(cols_a, cols_b, dtype):
+    size = torch.tensor([], dtype=dtype).element_size()
+    return (cols_a * size, cols_b * size)
+
+
+@pytest.mark.parametrize("M,kernel", [(1, "splitk"), (150, "splitk"),
+                                      (300, "splitk"), (6656, "wgmma")])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_route_by_rows_at_the_engine_width(M, kernel, dtype):
+    tdt = getattr(torch, dtype)
+    f32 = tdt == torch.float32
+    rt = bool_semiring.route(M, 6656, 6656, tdt, _pitches(6656, 6656, tdt))
+    assert rt.kernel == kernel
+    if kernel == "splitk":
+        # the right operand (the adjacency slice) streams as it is, in
+        # float32 or bf16; the left one (the few rows) is read as bf16
+        assert (rt.stage_a, rt.stage_b) == (f32, False)
+    else:
+        # the wgmma kernel reads only bf16: float32 goes through staging
+        assert (rt.stage_a, rt.stage_b) == (f32, f32)
+
+
+@pytest.mark.parametrize("case,want", [
+    # n = 6541 bf16: a 13,082-byte pitch, not a multiple of 16
+    ((6541, 6541, 6541, "bfloat16", None), ("wgmma", True, True)),
+    ((6656, 6656, 6656, "float32", None), ("wgmma", True, True)),
+    ((6656, 6656, 6656, "bfloat16", None), ("wgmma", False, False)),
+    ((6656, 6656, 6656, "bfloat16", (0, 8)), ("wgmma", False, True)),
+    ((300, 6541, 6541, "float32", None), ("splitk", True, True)),
+    ((300, 6541, 6541, "bfloat16", None), ("splitk", True, True)),
+])
+def test_route_stages_what_the_kernel_cannot_read(case, want):
+    M, K, N, dtype, bases = case
+    tdt = getattr(torch, dtype)
+    rt = bool_semiring.route(M, N, K, tdt, _pitches(K, N, tdt),
+                             bases or (0, 0))
+    assert (rt.kernel, rt.stage_a, rt.stage_b) == want
+    assert bool_semiring.staged_pitch(6541) == 6544
+
+
+@pytest.mark.parametrize("delta,kernel", [(-1, "splitk"), (0, "wgmma")])
+def test_route_tile_count_boundary(delta, kernel):
+    # 2 waves of 132 SMs = 264 output tiles of 128 x 128: 24 x 11 = 264
+    bf = torch.bfloat16
+    N = 11 * 128
+    M = 24 * 128 + (delta * 128 if delta else 0)
+    rt = bool_semiring.route(M, N, 512, bf, _pitches(512, N, bf))
+    assert rt.kernel == kernel
+    assert bool_semiring.route(1, 1, 0, bf, (2, 2)).kernel == "splitk"
+
+
+# ------------------------------------------------------------------ #
+# Both kernels on the card, at the shapes that stress each
+# ------------------------------------------------------------------ #
+ROUTE_CASES = [
+    # (m, k, n, density, kernel)
+    (300, 6656, 6656, 1.0, "splitk"),     # all ones: the largest sums
+    (6656, 6656, 6656, 1.0, "wgmma"),
+    (1, 6656, 6656, 0.01, "splitk"),      # several K chunks at few rows
+    (150, 6656, 6656, 0.01, "splitk"),
+    (300, 6541, 6656, 0.01, "splitk"),    # K not a multiple of 64
+    (2048, 33, 4096, 0.3, "wgmma"),       # K = 33
+    (4096, 6541, 2048, 0.001, "wgmma"),
+]
+
+
+@needs_cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("m,k,n,density,kernel", ROUTE_CASES)
+def test_cuda_semiring_routes_match_plain(m, k, n, density, kernel, dtype):
+    rng = np.random.default_rng(m + k + n)
+    tdt = getattr(torch, dtype)
+    a = torch.from_numpy(rand_bool(rng, (m, k), density)).to("cuda", tdt)
+    b = torch.from_numpy(rand_bool(rng, (k, n), density)).to("cuda", tdt)
+    size = a.element_size()
+    rt = bool_semiring.route(m, n, k, tdt, (k * size, n * size),
+                             (a.data_ptr(), b.data_ptr()))
+    assert rt.kernel == kernel
+    before = bool_semiring.MATMUL_KERNEL.launches
+    got = ops.bool_matmul(a, b)
+    torch.cuda.synchronize()
+    assert bool_semiring.MATMUL_KERNEL.launches == before + 1
+    assert torch.equal(got, ref.bool_matmul_ref(a, b))
+
+
+@needs_cuda
+@pytest.mark.parametrize("n,dtype,stage", [(6541, "float32", True),
+                                           (6541, "bfloat16", True),
+                                           (6656, "bfloat16", False),
+                                           (6656, "float32", True),
+                                           (300, "float32", True),
+                                           (300, "bfloat16", True),
+                                           (304, "bfloat16", False)])
+def test_cuda_closure_step_routes_match_plain(n, dtype, stage):
+    tdt = getattr(torch, dtype)
+    r = torch.from_numpy(rand_bool(np.random.default_rng(n), (n, n),
+                                   2.0 / n)).to("cuda", tdt)
+    size = r.element_size()
+    rt = bool_semiring.route(n, n, n, tdt, (n * size,) * 2,
+                             (r.data_ptr(),) * 2)
+    assert rt.kernel == ("wgmma" if n > 1000 else "splitk")
+    assert rt.stage_a == stage
+    before = bool_semiring.CLOSURE_KERNEL.launches
+    got = ops.closure_step(r)
+    torch.cuda.synchronize()
+    assert bool_semiring.CLOSURE_KERNEL.launches == before + 1
+    assert torch.equal(got, ref.fused_closure_step_ref(r))
+
+
+@needs_cuda
+@pytest.mark.parametrize("B", [1, 150, 300])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_frontier_step_split_k_matches_plain(B, dtype):
+    tdt = getattr(torch, dtype)
+    rng = np.random.default_rng(B)
+    f = torch.from_numpy(rand_bool(rng, (B, 6656), 0.05)).to("cuda", tdt)
+    A = torch.from_numpy(rand_bool(rng, (2, 6656, 6656), 0.002)).to(
+        "cuda", tdt)
+    # 52 column tiles of 104 K steps over one block an SM: every block's
+    # run crosses a tile, so each tile is split across K
+    assert bool_semiring.route(B, 6656, 6656, tdt,
+                               (6656 * f.element_size(),) * 2).kernel \
+        == "splitk"
+    before = label_frontier.STEP_KERNEL.launches
+    got = ops.frontier_step(f, A, 1)
+    torch.cuda.synchronize()
+    assert label_frontier.STEP_KERNEL.launches == before + 1
+    assert torch.equal(got, ref.frontier_step_ref(f, A, 1))
