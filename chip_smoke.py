@@ -97,13 +97,60 @@ def bound_ms(nbytes: float, ops: float,
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
 
 
-def check_mergejoin(torch, dev_index, rng, windowed: bool) -> dict:
-    """Merge-join kernel vs its plain version at Q = 65,536 queries."""
+def mergejoin_bound(d, s, t, mr):
+    """The merge join's bound for the queries ``(s, t, mr)`` on the device
+    index ``d``: bytes are the ids and answers plus each stored row a
+    query touches; operations are 2E Case-2 compares per query and E
+    compares per out entry carrying the queried MR."""
+    n, E = d.out_hub.shape
+    lo, Q = d.row_lo, len(s)
+    rows = len(np.unique(s)) + len(np.unique(t))
+    nbytes = 3 * 4 * Q + Q + rows * E * 4 * 2
+    om, oh = d.out_mr.cpu().numpy(), d.out_hub.cpu().numpy()
+    # entries of each stored out row by MR (PAD hubs excluded)
+    keep = (oh != -1) & (om >= 0)
+    per_mr = np.zeros((n, d.num_mrs), np.int64)
+    np.add.at(per_mr, (np.nonzero(keep)[0], om[keep]), 1)
+    match = int(per_mr[np.asarray(s) - lo, np.asarray(mr)].sum())
+    return bound_ms(nbytes, 2 * E * Q + match * E)
+
+
+def mergejoin_kernel_ms(torch, d, s, t, mr, iters: int) -> float:
+    """Device time of one merge-join launch alone on ``(s, t, mr)``, ids
+    already on the card (CUDA events over ``iters`` launches)."""
+    from repro_torch.kernels import mergejoin
+
+    Q, E, lo = len(s), d.row_len, d.row_lo
+    ts, tt, tm = (torch.from_numpy(np.asarray(a, np.int32)).cuda()
+                  for a in (s, t, mr))
+    out = torch.empty(Q, dtype=torch.bool, device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    ptrs = [a.data_ptr() for a in (d.out_hub, d.out_mr, d.in_hub, d.in_mr,
+                                   ts, tt, tm, out)]
+    return cuda_ms(lambda: mergejoin.KERNEL(*ptrs, Q, E, lo, lo, stream),
+                   iters)
+
+
+def call_ms(torch, fn, iters: int) -> float:
+    """Host-clock mean of ``fn()`` followed by a synchronise: what a caller
+    waits for one call, copies and launch included."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+        torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / iters * 1e3
+
+
+def check_mergejoin(torch, dev_index, rng, windowed: bool,
+                    Q: int = 65_536) -> dict:
+    """Merge-join kernel vs its plain version at Q random queries."""
     from repro_torch.kernels import mergejoin, ref
 
     d = dev_index
     n, E = d.out_hub.shape
-    Q = 65_536
     lo = d.row_lo
     s = rng.integers(lo, lo + n, Q).astype(np.int32)
     t = rng.integers(lo, lo + n, Q).astype(np.int32)
@@ -119,26 +166,16 @@ def check_mergejoin(torch, dev_index, rng, windowed: bool) -> dict:
         raise AssertionError(f"merge join differs from its plain version "
                              f"(windowed={windowed}) at "
                              f"{int((got != want).sum())} of {Q} queries")
-    out = torch.empty(Q, dtype=torch.bool, device="cuda")
-    stream = torch.cuda.current_stream().cuda_stream
-    ptrs = [a.data_ptr() for a in (d.out_hub, d.out_mr, d.in_hub, d.in_mr,
-                                   ts, tt, tm, out)]
-    kernel = lambda: mergejoin.KERNEL(  # noqa: E731
-        *ptrs, Q, E, lo, lo, stream)
-    ms = cuda_ms(kernel, 50)
+    ms = mergejoin_kernel_ms(torch, d, s, t, mr, 50)
     plain_ms = cuda_ms(plain, 5)
-    # bytes: the ids and answers, plus each stored row a query touches
-    rows = len(np.unique(s)) + len(np.unique(t))
-    nbytes = 3 * 4 * Q + Q + rows * E * 4 * 2
-    # operations: 2E Case-2 compares per query, E compares per out entry
-    # carrying the queried MR
-    om, oh = d.out_mr.cpu().numpy(), d.out_hub.cpu().numpy()
-    match = ((om[s - lo] == mr[:, None]) & (oh[s - lo] != -1)).sum()
-    ops = 2 * E * Q + int(match) * E
-    b, by = bound_ms(nbytes, ops)
+    b, by = mergejoin_bound(d, s, t, mr)
+    call = call_ms(torch, lambda: d.query_batch(s, t, mr, use_kernel=True),
+                   50)
     log(f"mergejoin windowed={windowed} rows={n} E={E} Q={Q}: max abs err "
         f"{err}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-        f"{b:.5f} ms ({by})")
+        f"{b:.5f} ms ({by}, {b / ms:.1%} of it reached); "
+        f"DeviceIndex.query_batch call {call:.4f} ms (host clock: id "
+        f"checks and copy, launch, answers back)")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b,
                 bound_by=by)
 
@@ -179,7 +216,7 @@ def check_frontier(torch, engine, rng, R: int, density: float) -> dict:
     b, by = bound_ms(nbytes, ops)
     log(f"frontier R={R} Vp={Vp} |L|={nl} nnz={len(nz_r)}: max abs err "
         f"{err}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-        f"{b:.5f} ms ({by})")
+        f"{b:.5f} ms ({by}, {b / ms:.1%} of it reached)")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b,
                 bound_by=by)
 
@@ -321,7 +358,21 @@ def check_dense_kernels(torch, g, rng) -> dict:
         M.numel() * 4 + n_pad * W * 4 + rows * W * 4,
         nnz * W + M.numel(), CUDA_CORE_OPS_PER_S, 20,
         f"a {n_pad}x{n_pad} ({nnz} > 0), b {n_pad}x{W} words")
-    del Mh
+    # ... and at the surface BFS's shape: 150 frontier rows (rows of the
+    # step matrix, 150 sampled vertices' first step)
+    rows150 = torch.from_numpy(np.sort(rng.choice(n, 150, replace=False)))
+    a150 = M[rows150.cuda()].contiguous()
+    e150 = compare("bitpack_matmul M=150", bitpack.bitpack_matmul(a150, P),
+                   ref.bitpack_matmul_ref(a150, P))
+    ah = Mh[rows150.numpy()]
+    sel = int(np.count_nonzero(ah.any(axis=0)))
+    timed("bitpack_matmul", e150, lambda: bitpack.bitpack_matmul(a150, P),
+          lambda: ref.bitpack_matmul_ref(a150, P), None,
+          a150.numel() * 4 + 150 * W * 4 + sel * W * 4,
+          int(np.count_nonzero(ah)) * W + a150.numel(), CUDA_CORE_OPS_PER_S,
+          50, f"M=150: a 150x{n_pad} ({int(np.count_nonzero(ah))} > 0), "
+          f"b {n_pad}x{W} words")
+    del Mh, ah, a150
 
     # frontier_step: 300 frontier rows, 1 % dense, on the dense A[1]
     B = 300
@@ -367,13 +418,16 @@ def check_dense_kernels(torch, g, rng) -> dict:
                 cd[t].data_ptr(), bufs[1 + t % 2].data_ptr(), B, n_pad, W,
                 stream)
             src = bufs[1 + t % 2]
-    # bytes and ORs of each wave, from this run's frontiers
-    nbytes = ops_ = 0
+    # the whole call's bytes: F read once, the output written once, the
+    # schedules, and the packed rows each wave selects; its operations:
+    # the word ORs of each wave and one test per frontier entry a wave
+    # reads (all of F at the first wave, words after it)
+    nbytes = 2 * F.nbytes + 2 * 4 * T * B
+    ops_ = B * n_pad
     Ft = F
     for t in range(T):
-        nbytes += 2 * Ft.nbytes + 8 * B + packed_rows_bytes(
-            Ft, labels[t], n_pad, W)
-        ops_ += int(np.count_nonzero(Ft)) * W + B * n_pad
+        nbytes += packed_rows_bytes(Ft, labels[t], n_pad, W)
+        ops_ += int(np.count_nonzero(Ft)) * W + (B * W if t else 0)
         Ft = ref.frontier_steps_ref(
             torch.from_numpy(Ft).cuda(), A, tl[t:t + 1],
             td[t:t + 1]).cpu().numpy()
@@ -381,6 +435,12 @@ def check_dense_kernels(torch, g, rng) -> dict:
         "frontier_steps", err, waves,
         lambda: ref.frontier_steps_ref(tF, A, tl, td), None, nbytes, ops_,
         CUDA_CORE_OPS_PER_S, 20, f"R={B} V={n_pad} T={T}, cyclic dst")
+    r = res["frontier_steps"]
+    call = cuda_ms(lambda: label_frontier.frontier_steps(tF, A, labels, dst),
+                   10)
+    log(f"frontier_steps R={B} V={n_pad} T={T}: {r['ms'] / T:.4f} ms a "
+        f"wave; the call with the wrapper's packing of A {call:.4f} ms "
+        f"(CUDA events)")
     return res
 
 
@@ -519,9 +579,11 @@ def main() -> int:
                                  svc_ref.mr_ids, rows=(lo, hi),
                                  device="cuda")
     check_mergejoin(torch, dw, rng, windowed=True)
+    check_mergejoin(torch, d, rng, windowed=False, Q=32)  # a served batch
     engine = CudaEngine(g, device="cuda")
     results["label_frontier"] = check_frontier(torch, engine, rng, R=300,
                                                density=0.01)
+    check_frontier(torch, engine, rng, R=150, density=0.01)
     check_frontier(torch, engine, rng, R=15, density=0.05)
     del svc_ref, dw, engine
 
@@ -654,18 +716,26 @@ def main() -> int:
         if [a.value for a in answers_c] != [a.value for a in answers]:
             raise AssertionError("the condensed service's answers differ "
                                  "from the Algorithm-2 service's")
-        return idx, csvc, cond_s, len(qs), int(want.sum())
+        return idx, csvc, cond_s, (qs, qt, qc), int(want.sum())
 
-    (idx_c, svc_c, cond_s, n_q, n_true), cond_counts = counted(
+    (idx_c, svc_c, cond_s, big_q, n_true), cond_counts = counted(
         torch, KERNELS, ("mergejoin",), condensed)
     log(f"build_condensed_device(hub_batch={HUB_BATCH}): {cond_s:.3f} s "
         f"(host clock), entries {idx_c.num_entries()} (Algorithm-2 index: "
         f"{svc.index.num_entries()}), row length E="
-        f"{svc_c.device_index.row_len}; {n_q} queries (64 sources x all "
+        f"{svc_c.device_index.row_len}; {len(big_q[0])} queries (64 sources x all "
         f"targets x {C} MRs, {n_true} true) through the merge kernel equal "
         f"reach and the Algorithm-2 index; {len(queries)} served queries "
         f"from backend cuda, fallbacks 0, equal to the first service's; "
         f"merge launches {cond_counts['mergejoin']}")
+    # those two launches, timed alone (E = 40 and E = 80)
+    for di, what in ((svc.device_index, "Algorithm-2 index"),
+                     (svc_c.device_index, "condensed index")):
+        ms = mergejoin_kernel_ms(torch, di, *big_q, 5)
+        b, by = mergejoin_bound(di, *big_q)
+        log(f"mergejoin {what} E={di.row_len} Q={len(big_q[0])}: kernel "
+            f"{ms:.4f} ms, bound {b:.5f} ms ({by}, {b / ms:.1%} of it "
+            f"reached); answers held against reach and the CSR join above")
     del svc_c
 
     # -- the kernel surface's path, counted ---------------------------- #
