@@ -90,6 +90,39 @@ def cuda_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def graph_ms(fn, iters: int) -> float:
+    """Mean device time of ``fn`` over ``iters`` calls captured in one
+    CUDA graph and replayed: the kernels' own time, where launching them
+    one by one from Python would leave the card waiting on the host
+    (a small kernel takes less than a launch from Python). ``fn`` must
+    read the current stream at each call."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def kernel_ms(fn, iters: int):
+    """``(graph_ms, cuda_ms)`` of ``fn``: launched from a CUDA graph, and
+    launched one by one from Python."""
+    return graph_ms(fn, iters), cuda_ms(fn, iters)
+
+
 def bound_ms(nbytes: float, ops: float,
              ops_per_s: float = CUDA_CORE_OPS_PER_S):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -115,20 +148,19 @@ def mergejoin_bound(d, s, t, mr):
     return bound_ms(nbytes, 2 * E * Q + match * E)
 
 
-def mergejoin_kernel_ms(torch, d, s, t, mr, iters: int) -> float:
+def mergejoin_kernel_ms(torch, d, s, t, mr, iters: int):
     """Device time of one merge-join launch alone on ``(s, t, mr)``, ids
-    already on the card (CUDA events over ``iters`` launches)."""
+    already on the card: :func:`kernel_ms` over ``iters`` launches."""
     from repro_torch.kernels import mergejoin
 
     Q, E, lo = len(s), d.row_len, d.row_lo
     ts, tt, tm = (torch.from_numpy(np.asarray(a, np.int32)).cuda()
                   for a in (s, t, mr))
     out = torch.empty(Q, dtype=torch.bool, device="cuda")
-    stream = torch.cuda.current_stream().cuda_stream
     ptrs = [a.data_ptr() for a in (d.out_hub, d.out_mr, d.in_hub, d.in_mr,
                                    ts, tt, tm, out)]
-    return cuda_ms(lambda: mergejoin.KERNEL(*ptrs, Q, E, lo, lo, stream),
-                   iters)
+    return kernel_ms(lambda: mergejoin.KERNEL(
+        *ptrs, Q, E, lo, lo, torch.cuda.current_stream().cuda_stream), iters)
 
 
 def call_ms(torch, fn, iters: int) -> float:
@@ -166,13 +198,14 @@ def check_mergejoin(torch, dev_index, rng, windowed: bool,
         raise AssertionError(f"merge join differs from its plain version "
                              f"(windowed={windowed}) at "
                              f"{int((got != want).sum())} of {Q} queries")
-    ms = mergejoin_kernel_ms(torch, d, s, t, mr, 50)
+    ms, stream_ms = mergejoin_kernel_ms(torch, d, s, t, mr, 50)
     plain_ms = cuda_ms(plain, 5)
     b, by = mergejoin_bound(d, s, t, mr)
     call = call_ms(torch, lambda: d.query_batch(s, t, mr, use_kernel=True),
                    50)
     log(f"mergejoin windowed={windowed} rows={n} E={E} Q={Q}: max abs err "
-        f"{err}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+        f"{err}; kernel {ms:.4f} ms (graph; {stream_ms:.4f} ms launched "
+        f"from Python), plain {plain_ms:.4f} ms, bound "
         f"{b:.5f} ms ({by}, {b / ms:.1%} of it reached); "
         f"DeviceIndex.query_batch call {call:.4f} ms (host clock: id "
         f"checks and copy, launch, answers back)")
@@ -201,11 +234,10 @@ def check_frontier(torch, engine, rng, R: int, density: float) -> dict:
         raise AssertionError(f"frontier step differs from its plain version "
                              f"at R={R} in {int((got != want).sum())} words")
     out = torch.empty((R, W), dtype=torch.int32, device="cuda")
-    stream = torch.cuda.current_stream().cuda_stream
     kernel = lambda: label_frontier.KERNEL(  # noqa: E731
         tF.data_ptr(), A.data_ptr(), tl.data_ptr(), out.data_ptr(), R, Vp,
-        W, stream)
-    ms = cuda_ms(kernel, 50)
+        W, torch.cuda.current_stream().cuda_stream)
+    ms, stream_ms = kernel_ms(kernel, 50)
     plain_ms = cuda_ms(plain, 3)
     # bytes: F, labels and the output once, plus the packed adjacency
     # row of every distinct (label, frontier vertex) pair
@@ -215,7 +247,8 @@ def check_frontier(torch, engine, rng, R: int, density: float) -> dict:
     ops = len(nz_r) * W + R * Vp   # word ORs + frontier compares
     b, by = bound_ms(nbytes, ops)
     log(f"frontier R={R} Vp={Vp} |L|={nl} nnz={len(nz_r)}: max abs err "
-        f"{err}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+        f"{err}; kernel {ms:.4f} ms (graph; {stream_ms:.4f} ms launched "
+        f"from Python), plain {plain_ms:.4f} ms, bound "
         f"{b:.5f} ms ({by}, {b / ms:.1%} of it reached)")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b,
                 bound_by=by)
@@ -238,15 +271,22 @@ def compare(name: str, got, want) -> float:
 
 
 def timed(name: str, err: float, kernel, plain, library, nbytes: float,
-          ops: float, ops_per_s: float, iters: int, note: str) -> dict:
+          ops: float, ops_per_s: float, iters: int, note: str,
+          graph: bool = False) -> dict:
     """Time the kernel, its plain version and the library call (or None)
-    with CUDA events; the bound from the bytes and operations given."""
-    ms = cuda_ms(kernel, iters)
+    with CUDA events; the bound from the bytes and operations given. With
+    ``graph``, the kernel's time is :func:`graph_ms` (the time launched
+    from Python is logged beside it)."""
+    if graph:
+        ms, stream_ms = kernel_ms(kernel, iters)
+        how = f" (graph; {stream_ms:.4f} ms launched from Python)"
+    else:
+        ms, how = cuda_ms(kernel, iters), ""
     plain_ms = cuda_ms(plain, 3)
     library_ms = cuda_ms(library, 3) if library is not None else None
     b, by = bound_ms(nbytes, ops, ops_per_s)
     lib = f"{library_ms:.4f} ms" if library_ms is not None else "none"
-    log(f"{name} {note}: max abs err {err}; kernel {ms:.4f} ms, plain "
+    log(f"{name} {note}: max abs err {err}; kernel {ms:.4f} ms{how}, plain "
         f"{plain_ms:.4f} ms, library {lib}, bound {b:.5f} ms ({by}, "
         f"{b / ms:.1%} of it reached)")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b,
@@ -357,7 +397,7 @@ def check_dense_kernels(torch, g, rng) -> dict:
         lambda: ref.bitpack_matmul_ref(M, P), None,
         M.numel() * 4 + n_pad * W * 4 + rows * W * 4,
         nnz * W + M.numel(), CUDA_CORE_OPS_PER_S, 20,
-        f"a {n_pad}x{n_pad} ({nnz} > 0), b {n_pad}x{W} words")
+        f"a {n_pad}x{n_pad} ({nnz} > 0), b {n_pad}x{W} words", graph=True)
     # ... and at the surface BFS's shape: 150 frontier rows (rows of the
     # step matrix, 150 sampled vertices' first step)
     rows150 = torch.from_numpy(np.sort(rng.choice(n, 150, replace=False)))
@@ -371,7 +411,7 @@ def check_dense_kernels(torch, g, rng) -> dict:
           a150.numel() * 4 + 150 * W * 4 + sel * W * 4,
           int(np.count_nonzero(ah)) * W + a150.numel(), CUDA_CORE_OPS_PER_S,
           50, f"M=150: a 150x{n_pad} ({int(np.count_nonzero(ah))} > 0), "
-          f"b {n_pad}x{W} words")
+          f"b {n_pad}x{W} words", graph=True)
     del Mh, ah, a150
 
     # frontier_step: 300 frontier rows, 1 % dense, on the dense A[1]
@@ -408,7 +448,6 @@ def check_dense_kernels(torch, g, rng) -> dict:
     AP = torch.stack([ref.pack_bits(A[lab]) for lab in range(nl)])
     cl, cd = tl.cuda(), td.cuda()
     bufs = [tF.clone(), torch.empty_like(tF), torch.empty_like(tF)]
-    stream = torch.cuda.current_stream().cuda_stream
 
     def waves():
         src = bufs[0]
@@ -416,7 +455,7 @@ def check_dense_kernels(torch, g, rng) -> dict:
             label_frontier.STEPS_KERNEL(
                 src.data_ptr(), AP.data_ptr(), cl[t].data_ptr(),
                 cd[t].data_ptr(), bufs[1 + t % 2].data_ptr(), B, n_pad, W,
-                stream)
+                torch.cuda.current_stream().cuda_stream)
             src = bufs[1 + t % 2]
     # the whole call's bytes: F read once, the output written once, the
     # schedules, and the packed rows each wave selects; its operations:
@@ -434,7 +473,8 @@ def check_dense_kernels(torch, g, rng) -> dict:
     res["frontier_steps"] = timed(
         "frontier_steps", err, waves,
         lambda: ref.frontier_steps_ref(tF, A, tl, td), None, nbytes, ops_,
-        CUDA_CORE_OPS_PER_S, 20, f"R={B} V={n_pad} T={T}, cyclic dst")
+        CUDA_CORE_OPS_PER_S, 20, f"R={B} V={n_pad} T={T}, cyclic dst",
+        graph=True)
     r = res["frontier_steps"]
     call = cuda_ms(lambda: label_frontier.frontier_steps(tF, A, labels, dst),
                    10)
@@ -731,10 +771,11 @@ def main() -> int:
     # those two launches, timed alone (E = 40 and E = 80)
     for di, what in ((svc.device_index, "Algorithm-2 index"),
                      (svc_c.device_index, "condensed index")):
-        ms = mergejoin_kernel_ms(torch, di, *big_q, 5)
+        ms, stream_ms = mergejoin_kernel_ms(torch, di, *big_q, 5)
         b, by = mergejoin_bound(di, *big_q)
         log(f"mergejoin {what} E={di.row_len} Q={len(big_q[0])}: kernel "
-            f"{ms:.4f} ms, bound {b:.5f} ms ({by}, {b / ms:.1%} of it "
+            f"{ms:.4f} ms (graph; {stream_ms:.4f} ms launched from Python), "
+            f"bound {b:.5f} ms ({by}, {b / ms:.1%} of it "
             f"reached); answers held against reach and the CSR join above")
     del svc_c
 
