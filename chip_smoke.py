@@ -10,7 +10,10 @@ points a user calls:
 1. builds the CUDA kernels from ``src/repro_torch/kernels/csrc``, one
    ``nvcc`` for each source, all started together;
 2. holds each kernel against its plain PyTorch version on the card, bit
-   for bit, at the main path's shapes, and times both with CUDA events;
+   for bit, at the main path's shapes, and times both with CUDA events:
+   the merge join at 65,536 random queries (full-height and windowed
+   rows) and at a served batch of 32, the frontier wave at R = 300, 150
+   and 15 rows;
 3. ``RLCService.build`` on the card with the default build backend, which
    there is the ``cuda`` one (frontier kernel); its entries and pruning
    counters must equal the ``numpy`` build's;
@@ -30,20 +33,28 @@ points a user calls:
    semiring rows (``bool_matmul``, ``closure_step``, ``frontier_step``)
    are timed in float32 (the kernels line) and in bf16, each beside
    ``torch.matmul`` in the same dtype, with the route (wgmma or split-K
-   kernel, staged or not) each shape took;
+   kernel, staged or not) each shape took; ``bitpack_matmul`` also at the
+   BFS's 150 rows, ``frontier_steps`` also per wave and as a whole call
+   with the wrapper's packing of ``A``;
 7. the dense path: ``DenseEngine.build`` on the card (bf16 stacks, every
    product through the semiring kernels; its ``reach`` must equal the
    plain path's), ``build_condensed_device`` at ``hub_batch = 8`` and an
    ``RLCService`` over the condensed index, whose answers to 64 sources x
    all targets x all MRs, through the merge kernel, must equal ``reach``
-   and the step-3 index's answers;
+   and the step-3 index's answers; those two 3,767,616-query launches
+   (E = 40 and E = 80) are then timed alone;
 8. the kernel surface's path: product-automaton BFS from sampled sources
    through ``frontier_step``, ``frontier_steps`` and ``bitpack_matmul``,
    whose visited sets must equal ``reach``.
 
 Launch counts are reset to 0 right before steps 3-4, 7 and 8 and read
 right after each; the ``kernels`` line reports each kernel's count from
-the path that runs it.
+the path that runs it. The merge join, the frontier wave,
+``frontier_steps`` and ``bitpack_matmul`` take less time on the card
+than a launch from Python, so their kernel times are taken from a
+captured CUDA graph (:func:`graph_ms`; the time launched from Python is
+logged beside it); every bound counts the bytes and operations of this
+run's inputs.
 Any failure raises and the script exits non-zero; without a CUDA device,
 or without the repository beside it, it exits non-zero before printing a
 result. The last line is ``{"ok": true, "device": {...}}``.
@@ -153,14 +164,11 @@ def mergejoin_kernel_ms(torch, d, s, t, mr, iters: int):
     already on the card: :func:`kernel_ms` over ``iters`` launches."""
     from repro_torch.kernels import mergejoin
 
-    Q, E, lo = len(s), d.row_len, d.row_lo
-    ts, tt, tm = (torch.from_numpy(np.asarray(a, np.int32)).cuda()
-                  for a in (s, t, mr))
-    out = torch.empty(Q, dtype=torch.bool, device="cuda")
-    ptrs = [a.data_ptr() for a in (d.out_hub, d.out_mr, d.in_hub, d.in_mr,
-                                   ts, tt, tm, out)]
-    return kernel_ms(lambda: mergejoin.KERNEL(
-        *ptrs, Q, E, lo, lo, torch.cuda.current_stream().cuda_stream), iters)
+    lo = d.row_lo
+    ids = torch.from_numpy(np.stack([s, t, mr]).astype(np.int32)).cuda()
+    out = torch.empty(len(s), dtype=torch.bool, device="cuda")
+    rows = (d.out_hub, d.out_mr, d.in_hub, d.in_mr)
+    return kernel_ms(lambda: mergejoin.launch(rows, ids, out, lo, lo), iters)
 
 
 def call_ms(torch, fn, iters: int) -> float:
@@ -444,19 +452,24 @@ def check_dense_kernels(torch, g, rng) -> dict:
     tl, td = (torch.from_numpy(x) for x in (labels, dst))
     err = compare("frontier_steps", got,
                   ref.frontier_steps_ref(tF, A, tl, td))
-    # the kernel alone: T launches over the adjacency packed once
-    AP = torch.stack([ref.pack_bits(A[lab]) for lab in range(nl)])
-    cl, cd = tl.cuda(), td.cuda()
-    bufs = [tF.clone(), torch.empty_like(tF), torch.empty_like(tF)]
+    # the kernel alone: T launches over the slices packed once, the
+    # frontier bit-packed between waves
+    used, local = label_frontier.packed_slices(labels, nl)
+    AP = bitpack.pack_slices(A, used, n_pad)
+    sched = torch.from_numpy(np.stack([local, dst])).cuda()
+    words = torch.empty((B, W), dtype=torch.int32, device="cuda")
+    dense_out = torch.empty_like(tF)
 
     def waves():
-        src = bufs[0]
+        src = tF
         for t in range(T):
+            nxt = dense_out if t == T - 1 else words
             label_frontier.STEPS_KERNEL(
-                src.data_ptr(), AP.data_ptr(), cl[t].data_ptr(),
-                cd[t].data_ptr(), bufs[1 + t % 2].data_ptr(), B, n_pad, W,
+                src.data_ptr(), AP.data_ptr(), sched[0, t].data_ptr(),
+                sched[1, t].data_ptr(), nxt.data_ptr(), B, n_pad, W,
+                int(t > 0), int(t == T - 1),
                 torch.cuda.current_stream().cuda_stream)
-            src = bufs[1 + t % 2]
+            src = nxt
     # the whole call's bytes: F read once, the output written once, the
     # schedules, and the packed rows each wave selects; its operations:
     # the word ORs of each wave and one test per frontier entry a wave
@@ -763,8 +776,8 @@ def main() -> int:
     log(f"build_condensed_device(hub_batch={HUB_BATCH}): {cond_s:.3f} s "
         f"(host clock), entries {idx_c.num_entries()} (Algorithm-2 index: "
         f"{svc.index.num_entries()}), row length E="
-        f"{svc_c.device_index.row_len}; {len(big_q[0])} queries (64 sources x all "
-        f"targets x {C} MRs, {n_true} true) through the merge kernel equal "
+        f"{svc_c.device_index.row_len}; {len(big_q[0])} queries (64 "
+        f"sources x all targets x {C} MRs, {n_true} true) through the merge kernel equal "
         f"reach and the Algorithm-2 index; {len(queries)} served queries "
         f"from backend cuda, fallbacks 0, equal to the first service's; "
         f"merge launches {cond_counts['mergejoin']}")

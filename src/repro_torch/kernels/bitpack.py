@@ -24,13 +24,12 @@ import torch
 from ._build import Kernel
 from .ref import bitpack_matmul_ref
 
-__all__ = ["bitpack_matmul", "pack_adjacency", "unpack_rows"]
+__all__ = ["bitpack_matmul", "pack_adjacency", "pack_slices",
+           "unpack_rows"]
 
 KERNEL = Kernel("label_frontier", "rlc_bitpack_matmul",
                 [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
                 + [ctypes.c_void_p])
-_CHUNK = 4096      # columns compacted per pass (kChunk in the source)
-_SMEM = 48 * 1024  # the kernel's shared memory: W + _CHUNK int32 words
 
 
 def pack_adjacency(src: np.ndarray, lab: np.ndarray, dst: np.ndarray,
@@ -51,6 +50,33 @@ def pack_adjacency(src: np.ndarray, lab: np.ndarray, dst: np.ndarray,
     return torch.from_numpy(words.view(np.int32)).to(device)
 
 
+def pack_slices(A: torch.Tensor, labels: np.ndarray, Vp: int
+                ) -> torch.Tensor:
+    """``(len(labels), Vp, Vp // 32)`` int32 words: ``pack_bits`` of the
+    ``(V, V)`` float32 0/1 slices ``A[labels]`` zero-padded to ``(Vp,
+    Vp)`` (:func:`repro_torch.kernels.ref.pack_bits`'s layout), on
+    ``A``'s device.
+
+    Each slice is packed by the OR-AND product with the packed identity,
+    ``bitpack_matmul(A[lab], I)``: row ``u`` ORs the identity rows of its
+    non-zero columns, which sets exactly their bits. On a card that is
+    one launch of the packed-product kernel a slice, reading the slice
+    once (and counted as ``bitpack_matmul`` launches)."""
+    V = A.shape[-1]
+    if Vp % 32 or Vp < V:
+        raise ValueError(f"Vp={Vp} must be a multiple of 32 and >= {V}")
+    k = torch.arange(V, device=A.device)
+    bit = torch.ones_like(k) << (k & 31)
+    eye = torch.zeros((V, Vp // 32), dtype=torch.int32, device=A.device)
+    eye[k, k >> 5] = torch.where(bit >= 2 ** 31, bit - 2 ** 32,
+                                 bit).to(torch.int32)
+    out = torch.zeros((len(labels), Vp, Vp // 32), dtype=torch.int32,
+                      device=A.device)
+    for i, lab in enumerate(np.asarray(labels).tolist()):
+        out[i, :V] = bitpack_matmul(A[lab].contiguous(), eye)
+    return out
+
+
 def unpack_rows(words: np.ndarray, V: int) -> np.ndarray:
     """Host-side unpack of ``(R, W)`` int32 words to an ``(R, V)`` bool
     array (the first ``V`` of the ``32 W`` columns)."""
@@ -67,9 +93,9 @@ def bitpack_matmul(a: torch.Tensor, b_packed: torch.Tensor) -> torch.Tensor:
     device, K and W independent; out: ``(M, W)`` int32 words. On a CPU
     device this runs :func:`repro_torch.kernels.ref.bitpack_matmul_ref`;
     on a CUDA device it launches the kernel (``rlc_bitpack_matmul`` in
-    ``csrc/label_frontier.cu``: one block per row of ``a`` compacts the
-    row's positive columns and ORs the selected words of ``b_packed``) or
-    raises."""
+    ``csrc/label_frontier.cu``: blocks compact a row of ``a``'s positive
+    columns and OR the selected words of ``b_packed``, a row's words split
+    over several blocks when ``M`` is small) or raises."""
     dev = a.device
     if a.dtype != torch.float32 or a.dim() != 2 or not a.is_contiguous():
         raise ValueError("a must be a contiguous (M, K) float32 tensor")
@@ -87,8 +113,6 @@ def bitpack_matmul(a: torch.Tensor, b_packed: torch.Tensor) -> torch.Tensor:
     out = torch.empty((M, W), dtype=torch.int32, device=dev)
     if M == 0 or W == 0:
         return out
-    if 4 * (W + _CHUNK) > _SMEM:
-        raise ValueError(f"W={W} exceeds the kernel's shared memory")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         KERNEL(a.data_ptr(), b_packed.data_ptr(), out.data_ptr(), M, K, W,

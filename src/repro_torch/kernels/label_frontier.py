@@ -8,9 +8,10 @@ The CUDA kernel (``csrc/label_frontier.cu``) replaces the Pallas kernel
 
 The adjacency is held bit-packed (:func:`repro_torch.kernels.bitpack.
 pack_adjacency`), so a wave reads only the packed rows of the frontier's
-vertices and ORs whole words. The kernel is bound by those bytes; one
-block per frontier row compacts the row's non-zeros and keeps its result
-words in shared memory.
+vertices and ORs whole words. The kernel is bound by those bytes: blocks
+compact a frontier row's non-zeros from 16-byte loads with one block-wide
+prefix sum, and a row's output words are split over several blocks when
+there are few rows, so the card stays full.
 
 Two more functions of ``repro/kernels/label_frontier.py`` keep its dense
 float32 layout at their signatures:
@@ -21,29 +22,32 @@ float32 layout at their signatures:
   a few hundred rows) on the ``A[label]`` slice in place, with a launch
   count of its own.
 * :func:`frontier_steps` — ``T`` chained waves with a row permutation
-  after each; it packs ``A`` once and runs one wave of the kernel above
-  per step, through an entry point whose store writes row ``r``'s result,
-  unpacked, into row ``dst[t, r]`` of the next frontier.
+  after each; it packs the slices of ``A`` that ``labels`` names once and
+  runs one wave of the kernel above per step, through an entry point that
+  stores row ``r``'s result at row ``dst[t, r]``: packed between waves
+  (the next wave compacts the words' set bits), unpacked into float32
+  rows by the last wave only.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import Tuple
 
 import numpy as np
 import torch
 
 from ._build import Kernel
-from .bitpack import _CHUNK, _SMEM
+from .bitpack import pack_slices
 from .bool_semiring import _ARGS_MM, _check_operands, launch_matmul
 from .ref import (frontier_step_many_ref, frontier_step_ref,
-                  frontier_steps_ref, pack_bits)
+                  frontier_steps_ref)
 
 KERNEL = Kernel("label_frontier", "rlc_frontier_step_many",
                 [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
                 + [ctypes.c_void_p])
 STEP_KERNEL = Kernel("bool_semiring", "rlc_bool_matmul", _ARGS_MM)
-STEPS_KERNEL = Kernel("label_frontier", "rlc_frontier_step_many_dst",
-                      [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
+STEPS_KERNEL = Kernel("label_frontier", "rlc_frontier_wave_dst",
+                      [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
                       + [ctypes.c_void_p])
 
 
@@ -84,8 +88,6 @@ def frontier_step_many(frontier: torch.Tensor, A_packed: torch.Tensor,
     out = torch.empty((R, W), dtype=torch.int32, device=dev)
     if R == 0:
         return out
-    if 4 * (W + _CHUNK) > _SMEM:
-        raise ValueError(f"Vp={Vp} exceeds the kernel's shared memory")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         KERNEL(frontier.data_ptr(), A_packed.data_ptr(), labels.data_ptr(),
@@ -129,6 +131,17 @@ def _schedule(x, name: str, shape) -> np.ndarray:
     return x.astype(np.int32)
 
 
+def packed_slices(labels: np.ndarray, num_labels: int
+                  ) -> Tuple[np.ndarray, np.ndarray]:
+    """The slices of ``A`` that a schedule names, and the schedule's
+    labels renumbered into them: ``(used, local)`` with ``used`` the
+    sorted distinct labels and ``used[local] == labels``."""
+    used, local = np.unique(labels, return_inverse=True)
+    if used.size and not (used[0] >= 0 and used[-1] < num_labels):
+        raise IndexError(f"labels outside [0, {num_labels})")
+    return used, local.reshape(np.shape(labels)).astype(np.int32)
+
+
 def frontier_steps(frontier: torch.Tensor, A: torch.Tensor, labels, dst
                    ) -> torch.Tensor:
     """``T`` chained waves: after wave ``t``, row ``r``'s expansion along
@@ -139,8 +152,9 @@ def frontier_steps(frontier: torch.Tensor, A: torch.Tensor, labels, dst
     the same device; labels, dst: ``(T, R)`` host integer arrays, labels
     range-checked and each ``dst[t]`` checked to be a permutation. On a
     CPU device this runs :func:`repro_torch.kernels.ref.
-    frontier_steps_ref`; on a CUDA device it packs ``A`` once and
-    launches the kernel ``T`` times, or raises."""
+    frontier_steps_ref`; on a CUDA device it packs the slices of ``A``
+    that ``labels`` names and launches the kernel ``T`` times (frontiers
+    bit-packed between waves), or raises."""
     dev = frontier.device
     if frontier.dtype != torch.float32 or frontier.dim() != 2:
         raise ValueError("frontier must be an (R, V) float32 tensor")
@@ -154,8 +168,7 @@ def frontier_steps(frontier: torch.Tensor, A: torch.Tensor, labels, dst
     T = labels.shape[0] if labels.ndim == 2 else -1
     labels = _schedule(labels, "labels", (T, R))
     dst = _schedule(dst, "dst", (T, R))
-    if labels.size and not (labels.min() >= 0 and labels.max() < nl):
-        raise IndexError(f"labels outside [0, {nl})")
+    used, local = packed_slices(labels, nl)
     if (np.sort(dst, axis=1) != np.arange(R)).any():
         raise ValueError("each dst[t] must be a permutation of the rows")
     if dev.type == "cpu":
@@ -163,24 +176,30 @@ def frontier_steps(frontier: torch.Tensor, A: torch.Tensor, labels, dst
                                   torch.from_numpy(dst))
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
-    Vp = -(-V // 32) * 32
-    W = Vp // 32
-    if 4 * (W + _CHUNK) > _SMEM:
-        raise ValueError(f"V={V} exceeds the kernel's shared memory")
-    F = frontier.new_zeros((R, Vp))   # never the caller's tensor
-    F[:, :V] = frontier
     if T == 0 or R == 0:
-        return F[:, :V].clone()
-    pad = (0, Vp - V) * 2
-    A_packed = torch.stack([pack_bits(torch.nn.functional.pad(A[lab], pad))
-                            for lab in range(nl)])
-    labels, dst = (torch.from_numpy(x).to(dev) for x in (labels, dst))
-    out = torch.empty_like(F)
+        return frontier.clone()
+    Vp = -(-V // 128) * 128   # whole 16-byte units of words
+    W = Vp // 32
+    if Vp == V and frontier.is_contiguous() \
+            and frontier.data_ptr() % 16 == 0:
+        F = frontier          # the first wave only reads it
+    else:
+        F = frontier.new_zeros((R, Vp))
+        F[:, :V] = frontier
+    A_packed = pack_slices(A, used, Vp)
+    sched = torch.from_numpy(np.stack([local, dst])).to(dev)
+    words = [torch.empty((R, W), dtype=torch.int32, device=dev)
+             for _ in range(min(T - 1, 2))]
+    out = torch.empty((R, Vp), dtype=torch.float32, device=dev)
+    src = F
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         for t in range(T):
-            STEPS_KERNEL(F.data_ptr(), A_packed.data_ptr(),
-                         labels[t].data_ptr(), dst[t].data_ptr(),
-                         out.data_ptr(), R, Vp, W, stream)
-            F, out = out, F
-    return F[:, :V] if Vp == V else F[:, :V].contiguous()
+            last = t == T - 1
+            nxt = out if last else words[t % 2]
+            STEPS_KERNEL(src.data_ptr(), A_packed.data_ptr(),
+                         sched[0, t].data_ptr(), sched[1, t].data_ptr(),
+                         nxt.data_ptr(), R, Vp, W, int(t > 0), int(last),
+                         stream)
+            src = nxt
+    return out if Vp == V else out[:, :V].contiguous()

@@ -1,20 +1,24 @@
 """Batched RLC query join (Algorithm 1 on the padded device rows).
 
 The CUDA kernel (``csrc/mergejoin.cu``) replaces the Pallas kernel
-``repro/kernels/mergejoin.py::query_batch``. One warp answers one query
-``(s, t, mr)``: it stages ``L_in(t)`` in shared memory, its lanes stride
-over ``L_out(s)`` and the warp votes with ``__any_sync``. Case 2 (a
-direct entry) and Case 1 (a shared hub) are decided in the same pass.
-It is bound by the bytes of the gathered rows (four ``E``-word rows per
-query), not by its ``E x E`` compares.
+``repro/kernels/mergejoin.py::query_batch``. A group of
+lanes (:func:`lane_group`) answers one query ``(s, t, mr)``: its
+lanes load the four rows into registers (16-byte loads where
+:func:`vector_rows` allows them), drop the entries whose MR differs, test
+Case 2 (a direct entry) with one compare per register, and test Case 1
+(a shared hub) by broadcasting each surviving out hub to the group. It
+is bound by the bytes of the gathered rows (four ``E``-word rows per
+query), not by its compares.
 
 Query ids arrive from the host. The Pallas kernel never range-checks
-``s - row_base``; this wrapper does, before the ids are copied to the
-device, so the kernel never reads outside the row arrays.
+``s - row_base``; this wrapper does (:func:`query_ids`), and copies the
+ids to the device as one ``(3, Q)`` int32 array, so the kernel never
+reads outside the row arrays.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import Tuple
 
 import numpy as np
 import torch
@@ -23,9 +27,27 @@ from ._build import Kernel
 from .ref import mergejoin_ref
 
 KERNEL = Kernel("mergejoin", "rlc_mergejoin",
-                [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4
+                [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
                 + [ctypes.c_void_p])
-_WARPS = 8  # queries per block (kWarps in csrc/mergejoin.cu)
+
+
+def lane_group(E: int) -> Tuple[int, int]:
+    """``(lanes, chunks)``: a query's group of lanes and the 16-byte chunks
+    (4 entries) of each row that a lane holds. Eight lanes hold a row of
+    up to 64 entries at once (one chunk a lane up to E = 32, two above);
+    longer rows get the whole warp, one chunk a lane, in turns of 128
+    entries beyond E = 128. The split was chosen by timing the
+    alternatives on the H100 at the path's row lengths, E = 40 and 80
+    (PERF.md)."""
+    if E > 64:
+        return 32, 1
+    return 8, 1 if E <= 32 else 2
+
+
+def vector_rows(E: int, arrays) -> bool:
+    """Whether the kernel may read the rows with 16-byte loads: every row
+    starts on a 16-byte boundary."""
+    return E % 4 == 0 and all(a.data_ptr() % 16 == 0 for a in arrays)
 
 
 def _rows(x, name: str, n_rows: int, base: int) -> np.ndarray:
@@ -35,7 +57,22 @@ def _rows(x, name: str, n_rows: int, base: int) -> np.ndarray:
     if x.size and not (x.min() - base >= 0 and x.max() - base < n_rows):
         raise IndexError(
             f"{name} - row_base outside the stored rows [0, {n_rows})")
-    return x.astype(np.int32)
+    return x
+
+
+def query_ids(s, t, mr, n_out: int, n_in: int, row_base_out: int = 0,
+              row_base_in: int = 0) -> np.ndarray:
+    """``(3, Q)`` int32 rows ``s, t, mr``, one host array for one copy.
+    ``s - row_base_out`` must lie in ``[0, n_out)`` and ``t -
+    row_base_in`` in ``[0, n_in)`` (IndexError otherwise)."""
+    s = _rows(s, "s", n_out, row_base_out)
+    t = _rows(t, "t", n_in, row_base_in)
+    mr = np.asarray(mr)
+    if mr.ndim != 1 or not (len(s) == len(t) == len(mr)):
+        raise ValueError("s, t and mr must have one length")
+    ids = np.empty((3, len(s)), np.int32)
+    ids[0], ids[1], ids[2] = s, t, mr
+    return ids
 
 
 def query_batch(out_hub: torch.Tensor, out_mr: torch.Tensor,
@@ -60,28 +97,29 @@ def query_batch(out_hub: torch.Tensor, out_mr: torch.Tensor,
                              "tensors on one device")
     if out_mr.shape != out_hub.shape or in_mr.shape != in_hub.shape:
         raise ValueError("hub and mr rows must have the same shape")
-    s = _rows(s, "s", out_hub.shape[0], row_base_out)
-    t = _rows(t, "t", in_hub.shape[0], row_base_in)
-    mr = np.asarray(mr).astype(np.int32)
-    if not (len(s) == len(t) == len(mr)):
-        raise ValueError("s, t and mr must have one length")
-    s, t, mr = (torch.from_numpy(a).to(dev) for a in (s, t, mr))
+    ids = torch.from_numpy(query_ids(s, t, mr, out_hub.shape[0],
+                                     in_hub.shape[0], row_base_out,
+                                     row_base_in)).to(dev)
     if dev.type == "cpu":
-        return mergejoin_ref(out_hub, out_mr, in_hub, in_mr, s, t, mr,
+        return mergejoin_ref(out_hub, out_mr, in_hub, in_mr, *ids,
                              row_base_out, row_base_in)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
-    Q = len(s)
-    out = torch.empty(Q, dtype=torch.bool, device=dev)
-    if Q == 0:
-        return out
-    smem = 4 * 2 * E * _WARPS
-    if smem > 48 * 1024:
-        raise ValueError(f"row length E={E} exceeds the kernel's shared "
-                         "memory")
+    out = torch.empty(ids.shape[1], dtype=torch.bool, device=dev)
+    if out.numel():
+        launch(arrays, ids, out, row_base_out, row_base_in)
+    return out
+
+
+def launch(arrays, ids: torch.Tensor, out: torch.Tensor,
+           row_base_out: int = 0, row_base_in: int = 0) -> None:
+    """One kernel launch on checked CUDA tensors: the four row arrays,
+    the ``(3, Q)`` int32 ids and the ``(Q,)`` bool answers."""
+    E = arrays[0].shape[1]
+    dev = out.device
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        KERNEL(*(a.data_ptr() for a in arrays), s.data_ptr(), t.data_ptr(),
-               mr.data_ptr(), out.data_ptr(), Q, E, int(row_base_out),
-               int(row_base_in), stream)
-    return out
+        KERNEL(*(a.data_ptr() for a in arrays), *(r.data_ptr() for r in ids),
+               out.data_ptr(), ids.shape[1], E, int(row_base_out),
+               int(row_base_in), *lane_group(E), int(vector_rows(E, arrays)),
+               stream)

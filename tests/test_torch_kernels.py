@@ -32,17 +32,39 @@ def rand_rows(rng, n, E, num_mrs=6):
     return hub, mr
 
 
-def mergejoin_case(n, E, Q, lo, hi, seed):
-    """Full-height rows plus queries whose ids lie in ``[lo, hi)``."""
+def mergejoin_case(n, E, Q, lo, hi, seed, layout="random"):
+    """Full-height rows plus queries whose ids lie in ``[lo, hi)``.
+
+    layout: ``random`` (PAD slots, 6 MRs), ``all_mr`` (every slot holds
+    an entry with the one MR that every query asks for), ``mr_missing``
+    (MR 5 is in no row, and a third of the queries ask for it) or
+    ``case2_only`` (sources below the middle of ``[lo, hi)``, targets
+    above it, other hubs out of the id range and apart: no shared hub, so
+    every hit is a Case-2 hit)."""
     rng = np.random.default_rng(seed)
     oh, om = rand_rows(rng, n, E)
     ih, im = rand_rows(rng, n, E)
     s = rng.integers(lo, hi, Q).astype(np.int32)
     t = rng.integers(lo, hi, Q).astype(np.int32)
     mr = rng.integers(0, 6, Q).astype(np.int32)
+    if layout == "all_mr":
+        oh, ih = (rng.integers(0, E * n, size=(n, E)).astype(np.int32)
+                  for _ in range(2))
+        om, im, mr = np.zeros_like(om), np.zeros_like(im), np.zeros_like(mr)
+    elif layout == "mr_missing":
+        om[om == 5], im[im == 5] = 4, 4
+        mr[::3] = 5
+    elif layout == "case2_only":
+        mid = (lo + hi) // 2
+        s, t = s % (mid - lo) + lo, t % (hi - mid) + mid
+        oh[oh >= 0] += 2 * n
+        ih[ih >= 0] += 4 * n
     # plant Case-2 hits so both cases are exercised
     oh[s[::3], 0] = t[::3]
     om[s[::3], 0] = mr[::3]
+    if layout == "case2_only":   # ... from both sides
+        ih[t[1::3], -1] = s[1::3]
+        im[t[1::3], -1] = mr[1::3]
     return oh, om, ih, im, s, t, mr
 
 
@@ -54,15 +76,22 @@ def torch_mergejoin(oh, om, ih, im, s, t, mr, lo, hi, device="cpu"):
 
 
 MJ_SHAPES = [(32, 8, 17), (64, 24, 64), (128, 64, 3)]
+# the earlier shapes keep their ids; the new ones name their row layout
+MJ_CASES = [pytest.param(n, E, Q, "random", id=f"{n}-{E}-{Q}")
+            for n, E, Q in MJ_SHAPES] + [
+    pytest.param(n, E, Q, layout, id=f"{n}-{E}-{Q}-{layout}")
+    for n, E, Q in [(96, 40, 50), (80, 72, 33), (64, 80, 40)]
+    for layout in ("random", "all_mr", "mr_missing", "case2_only")]
 
 
 @pytest.mark.parametrize("window", [False, True])
-@pytest.mark.parametrize("n,E,Q", MJ_SHAPES)
-def test_plain_mergejoin_matches_pallas(n, E, Q, window):
+@pytest.mark.parametrize("n,E,Q,layout", MJ_CASES)
+def test_plain_mergejoin_matches_pallas(n, E, Q, layout, window):
     ops = pytest.importorskip("repro.kernels.ops")
     import jax.numpy as jnp
     lo, hi = (n // 4, 3 * n // 4) if window else (0, n)
-    oh, om, ih, im, s, t, mr = mergejoin_case(n, E, Q, lo, hi, n + E + Q)
+    oh, om, ih, im, s, t, mr = mergejoin_case(n, E, Q, lo, hi, n + E + Q,
+                                              layout)
     want = ops.mergejoin_query(
         *(jnp.asarray(a[lo:hi]) for a in (oh, om, ih, im)),
         jnp.asarray(s), jnp.asarray(t), jnp.asarray(mr), interpret=True,
@@ -169,6 +198,101 @@ def test_cuda_mergejoin_matches_plain(n, E, Q, window):
     torch.cuda.synchronize()
     assert mergejoin.KERNEL.launches == before + 1
     np.testing.assert_array_equal(got, torch_mergejoin(*case, lo, hi))
+
+
+def chunked_mergejoin_ref(rows, ids, lo):
+    """``ref.mergejoin_ref`` in slices of queries, so that its ``(Q, E,
+    E)`` join stays small at large ``E``."""
+    E = rows[0].shape[1]
+    step = max(1, 2 ** 24 // (E * E))
+    return torch.cat([ref.mergejoin_ref(*rows, *ids[:, i:i + step], lo, lo)
+                      for i in range(0, ids.shape[1], step)])
+
+
+@needs_cuda
+@pytest.mark.parametrize("window", [False, True])
+@pytest.mark.parametrize("Q", [1, 31, 32, 33, 65_536])
+@pytest.mark.parametrize("E", [8, 18, 40, 72, 80, 256, 1000])
+def test_cuda_mergejoin_row_lengths_and_batches(E, Q, window):
+    """Every lane-group width, rows of one to eight turns, partial groups
+    and blocks at the batch's end, windowed layouts; E = 18 takes the
+    kernel's 4-byte loads (its rows are not 16-byte aligned)."""
+    n = 512
+    lo, hi = (n // 4, 3 * n // 4) if window else (0, n)
+    layout = ("random", "all_mr", "mr_missing", "case2_only")[Q % 4]
+    oh, om, ih, im, s, t, mr = mergejoin_case(n, E, Q, lo, hi, E + Q,
+                                              layout)
+    rows = [torch.from_numpy(np.ascontiguousarray(a[lo:hi])).cuda()
+            for a in (oh, om, ih, im)]
+    before = mergejoin.KERNEL.launches
+    got = mergejoin.query_batch(*rows, s, t, mr, row_base_out=lo,
+                                row_base_in=lo)
+    torch.cuda.synchronize()
+    assert mergejoin.KERNEL.launches == before + 1
+    ids = torch.from_numpy(np.stack([s, t, mr]).astype(np.int32)).cuda()
+    assert torch.equal(got, chunked_mergejoin_ref(rows, ids, lo))
+
+
+@needs_cuda
+@pytest.mark.parametrize("density", [0.0, 0.01, 1.0])
+@pytest.mark.parametrize("R", [1, 15, 150, 300])
+def test_cuda_frontier_wave_at_path_shapes(R, density):
+    rng = np.random.default_rng(R)
+    V = 6656
+    f = torch.from_numpy(rand_bool(rng, (R, V), density)).cuda()
+    A = ref.pack_bits(torch.from_numpy(
+        rand_bool(rng, (3, V, V), 0.002)).cuda())
+    labels = rng.integers(0, 3, R).astype(np.int32)
+    got = label_frontier.frontier_step_many(f, A, labels)
+    want = ref.frontier_step_many_ref(f, A, torch.from_numpy(labels))
+    assert torch.equal(got, want)
+
+
+@needs_cuda
+@pytest.mark.parametrize("R", [1, 15, 150])
+def test_cuda_frontier_wave_odd_word_count(R):
+    """W = 209 words a row: the kernel's one-word loads."""
+    rng = np.random.default_rng(R)
+    V = 6688
+    f = torch.from_numpy(rand_bool(rng, (R, V), 0.01)).cuda()
+    A = ref.pack_bits(torch.from_numpy(
+        rand_bool(rng, (2, V, V), 0.002)).cuda())
+    labels = rng.integers(0, 2, R).astype(np.int32)
+    got = label_frontier.frontier_step_many(f, A, labels)
+    assert torch.equal(got, ref.frontier_step_many_ref(
+        f, A, torch.from_numpy(labels)))
+
+
+@needs_cuda
+@pytest.mark.parametrize("T", [1, 2, 3])
+@pytest.mark.parametrize("R,density", [(1, 0.01), (15, 0.01), (150, 0.01),
+                                       (300, 0.01), (15, 0.0), (15, 1.0)])
+def test_cuda_frontier_steps_at_path_shapes(R, density, T):
+    """V = 6541 (not a multiple of 32), labels naming two of three
+    slices."""
+    rng = np.random.default_rng(R + T)
+    V = 6541
+    f = torch.from_numpy(rand_bool(rng, (R, V), density)).cuda()
+    A = torch.from_numpy(rand_bool(rng, (3, V, V), 0.002)).cuda()
+    labels = rng.choice([0, 2], (T, R))
+    dst = np.stack([rng.permutation(R) for _ in range(T)])
+    before = label_frontier.STEPS_KERNEL.launches
+    got = label_frontier.frontier_steps(f, A, labels, dst)
+    torch.cuda.synchronize()
+    assert label_frontier.STEPS_KERNEL.launches == before + T
+    want = ref.frontier_steps_ref(f, A, torch.from_numpy(labels),
+                                  torch.from_numpy(dst))
+    assert torch.equal(got, want)
+
+
+@needs_cuda
+@pytest.mark.parametrize("K,n", [(6656, 6656), (6541, 6560)])
+def test_cuda_bitpack_matmul_at_the_bfs_shape(K, n):
+    rng = np.random.default_rng(K)
+    a = torch.from_numpy(rand_bool(rng, (150, K), 0.01)).cuda()
+    b = ref.pack_bits(torch.from_numpy(rand_bool(rng, (K, n), 0.01)).cuda())
+    got = ops.bitpack_matmul(a, b)
+    assert torch.equal(got, ref.bitpack_matmul_ref(a, b))
 
 
 @needs_cuda
@@ -289,6 +413,94 @@ def test_plain_frontier_steps_matches_pallas():
     got = label_frontier.frontier_steps(torch.from_numpy(f),
                                         torch.from_numpy(A), labels, dst)
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("T,subset", [(3, False), (3, True), (2, True),
+                                      (1, True)])
+def test_plain_frontier_steps_schedules_match_pallas(T, subset):
+    """More waves than two, and schedules that name only some slices."""
+    pytest.importorskip("repro.kernels.label_frontier")
+    import jax.numpy as jnp
+    from repro.kernels.label_frontier import frontier_steps as j_steps
+    rng = np.random.default_rng(10 * T + subset)
+    R, V, L = 7, 100, 4
+    f = rand_bool(rng, (R, V), 0.1)
+    A = rand_bool(rng, (L, V, V), 0.05)
+    pick = [1, 3] if subset else list(range(L))
+    labels = rng.choice(pick, (T, R)).astype(np.int32)
+    dst = np.stack([rng.permutation(R) for _ in range(T)]).astype(np.int32)
+    want = j_steps(jnp.asarray(f), jnp.asarray(A), jnp.asarray(labels),
+                   jnp.asarray(dst), interpret=True)
+    got = label_frontier.frontier_steps(torch.from_numpy(f),
+                                        torch.from_numpy(A), labels, dst)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def test_packed_slices_names_only_the_schedules_labels():
+    labels = np.array([[3, 1, 3], [1, 1, 3]])
+    used, local = label_frontier.packed_slices(labels, 5)
+    np.testing.assert_array_equal(used, [1, 3])
+    np.testing.assert_array_equal(used[local], labels)
+    assert local.dtype == np.int32 and local.shape == labels.shape
+    with pytest.raises(IndexError):
+        label_frontier.packed_slices(labels, 3)
+    used, local = label_frontier.packed_slices(np.zeros((0, 4), int), 2)
+    assert used.size == 0 and local.shape == (0, 4)
+
+
+@pytest.mark.parametrize("V,Vp", [(100, 128), (128, 128), (250, 384)])
+def test_pack_slices_equals_pack_bits_of_the_padded_slices(V, Vp):
+    rng = np.random.default_rng(V)
+    A = torch.from_numpy(rand_bool(rng, (3, V, V), 0.3))
+    A[:, :, V - 1] = 1                    # a sign bit where V % 32 == 0
+    got = bitpack.pack_slices(A, np.array([2, 0]), Vp)
+    pad = torch.nn.functional.pad(A, (0, Vp - V, 0, Vp - V))
+    assert got.dtype == torch.int32 and got.shape == (2, Vp, Vp // 32)
+    assert torch.equal(got, ref.pack_bits(pad[[2, 0]]))
+    with pytest.raises(ValueError):
+        bitpack.pack_slices(A, np.array([0]), V + 1)
+
+
+@pytest.mark.parametrize("E,group", [(1, (8, 1)), (8, (8, 1)), (32, (8, 1)),
+                                     (33, (8, 2)), (40, (8, 2)),
+                                     (64, (8, 2)), (65, (32, 1)),
+                                     (72, (32, 1)), (80, (32, 1)),
+                                     (1000, (32, 1))])
+def test_lane_group_from_row_length(E, group):
+    lanes, chunks = mergejoin.lane_group(E)
+    assert (lanes, chunks) == group
+    # the group holds the whole row at once up to E = 128, else a turn of
+    # a whole warp
+    assert 4 * lanes * chunks >= min(E, 128)
+
+
+def test_vector_rows_needs_whole_aligned_units():
+    rows = torch.zeros((16, 40), dtype=torch.int32)
+    assert mergejoin.vector_rows(40, [rows] * 4)
+    odd = torch.zeros((16, 18), dtype=torch.int32)
+    assert not mergejoin.vector_rows(18, [odd] * 4)
+    # a window that starts one row in: 72 bytes past a 16-byte boundary
+    assert not mergejoin.vector_rows(18, [odd[1:]] * 4)
+    assert mergejoin.vector_rows(40, [rows[1:]] * 4)
+    assert not mergejoin.vector_rows(40, [rows.view(-1)[1:161].view(4, 40)]
+                                     + [rows] * 3)
+
+
+def test_query_ids_are_one_checked_array():
+    s, t, mr = np.array([5, 6, 9]), np.array([7, 5, 5]), np.array([0, 2, 1])
+    ids = mergejoin.query_ids(s, t, mr, 5, 4, row_base_out=5,
+                              row_base_in=5)
+    assert ids.dtype == np.int32 and ids.shape == (3, 3)
+    assert ids.flags.c_contiguous
+    np.testing.assert_array_equal(ids, np.stack([s, t, mr]))
+    with pytest.raises(IndexError):                # 9 - 5 >= 4 in rows
+        mergejoin.query_ids(s, s, mr, 5, 4, 5, 5)
+    with pytest.raises(IndexError):                # 4 < row_base_out
+        mergejoin.query_ids(s - 1, t, mr, 5, 4, 5, 5)
+    with pytest.raises(ValueError):
+        mergejoin.query_ids(s, t, mr[:2], 5, 4, 5, 5)
+    none = np.zeros(0, np.int64)
+    assert mergejoin.query_ids(none, none, none, 1, 1).shape == (3, 0)
 
 
 def test_plain_mergejoin_query_surface_matches_pallas():
