@@ -45,9 +45,19 @@ points a user calls:
    (E = 40 and E = 80) are then timed alone;
 8. the kernel surface's path: product-automaton BFS from sampled sources
    through ``frontier_step``, ``frontier_steps`` and ``bitpack_matmul``,
-   whose visited sets must equal ``reach``.
+   whose visited sets must equal ``reach``;
+9. the whole single-host service on the card (:func:`run_full_service`):
+   the step-3 index adopted under the control plane (SLO batching,
+   depth-bound admission, cache warming), shadow verification and span
+   sampling; four threads ``submit()`` the step-4 stream to the async
+   engine, two chained ``apply_delta`` calls of 32 inserts and 32
+   deletes run while the engine runs (each followed by a submit wave
+   and held against a fresh ``numpy`` build of the mutated graph),
+   then ``explain``, ``audit_report``, ``drain_shadow``, the telemetry
+   snapshot and ``stats()`` are checked and ``close()`` must stop every
+   thread it started.
 
-Launch counts are reset to 0 right before steps 3-4, 7 and 8 and read
+Launch counts are reset to 0 right before steps 3-4, 7, 8 and 9 and read
 right after each; the ``kernels`` line reports each kernel's count from
 the path that runs it. The merge join, the frontier wave,
 ``frontier_steps`` and ``bitpack_matmul`` take less time on the card
@@ -563,6 +573,271 @@ def run_surface_path(torch, g, eng, rng):
     return len(S)
 
 
+def submit_wave(svc, queries, threads: int = 4):
+    """``queries`` submitted from ``threads`` threads; returns the answers
+    (``result()`` of every future), the wall seconds from the first
+    submit to the last answer, and each future's latency (host clock,
+    submit to resolution)."""
+    import threading
+
+    n = len(queries)
+    futs, t_sub, t_done = [None] * n, np.zeros(n), np.zeros(n)
+    resolved = threading.Semaphore(0)
+
+    def done(i):
+        t_done[i] = time.perf_counter()
+        resolved.release()
+
+    def run(lo):
+        for i in range(lo, n, threads):
+            t_sub[i] = time.perf_counter()
+            futs[i] = svc.submit(*queries[i])
+            futs[i].add_done_callback(lambda _f, i=i: done(i))
+
+    t0 = time.perf_counter()
+    workers = [threading.Thread(target=run, args=(i,))
+               for i in range(threads)]
+    for w in workers:
+        w.start()
+    for w in workers:
+        w.join()
+    answers = [f.result(timeout=300) for f in futs]   # raises a batch's error
+    for _ in range(n):
+        resolved.acquire()
+    return answers, time.perf_counter() - t0, t_done - t_sub
+
+
+def check_wave(svc, queries, answers, frozen, mr_ids, g, rng,
+               n_oracle: int = 0) -> int:
+    """Every answer that is not SHED equals the CSR join of ``frozen``
+    (and, on ``n_oracle`` samples, the BiBFS oracle); computed answers
+    come from backend ``cuda``. Returns the number shed."""
+    from repro_torch.core.baselines import bibfs_rlc
+    from repro_torch.service import SHED
+
+    live = [i for i, a in enumerate(answers) if a is not SHED]
+    backends = {answers[i].backend for i in live
+                if answers[i].disposition == "computed"}
+    if backends - {"cuda"}:
+        raise AssertionError(f"computed answers came from {backends}")
+    s, t, m = (np.array([f(queries[i]) for i in live]) for f in (
+        lambda q: q[0], lambda q: q[1], lambda q: mr_ids[q[2]]))
+    want = frozen.query_batch(s, t, m)
+    if [answers[i].value for i in live] != want.tolist():
+        raise AssertionError("submitted answers differ from the CSR join")
+    if n_oracle:
+        for i in rng.choice(live, size=min(n_oracle, len(live)),
+                            replace=False).tolist():
+            if bibfs_rlc(g, *queries[i]) != answers[i].value:
+                raise AssertionError(f"answer {i} differs from the oracle")
+    return len(answers) - len(live)
+
+
+def numpy_reference(graph, mr_ids):
+    """A fresh ``numpy`` build of ``graph``, in a worker process: its
+    entry sets, counters, frozen layout and wall seconds."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    from repro_torch.build import build_rlc_index_with_stats
+    t0 = time.perf_counter()
+    idx, st = build_rlc_index_with_stats(graph, K, backend="numpy")
+    return (entry_sets(idx), st.counters(), idx.freeze(mr_ids),
+            time.perf_counter() - t0)
+
+
+def run_full_service(torch, card, g, index, queries, kernels, rng) -> dict:
+    """Phase 9: the whole single-host service on the card, counted.
+
+    Adopts ``index`` (the step-3 build, so nothing is built before
+    serving) under the control plane, shadow verification and span
+    sampling; every batch the async engine's thread flushes, every warm
+    batch and every batch after a delta goes through the merge kernel,
+    and the delta builder's traced bootstrap and dirty phases take device
+    waves through the ``cuda`` backend. The two deltas are drawn up
+    front, so the fresh ``numpy`` builds of the mutated graphs that each
+    apply is held against run in two worker processes meanwhile. Raises
+    on any failed check; returns the phase's launch counts."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    from repro_torch.core.queries import biased_true_queries
+    from repro_torch.graphgen import random_delta
+    from repro_torch.obs import (fingerprint, replay_witness,
+                                 validate_audit_report, validate_snapshot,
+                                 verify_witness_entries)
+    from repro_torch.service import RLCService, ServiceConfig, validate_stats
+
+    cfg = ServiceConfig(
+        k=K, device="cuda", batch_size=32, max_wait_ms=2.0,
+        target_p99_ms=5.0, warm_capacity=256, admission_max_pending=4096,
+        shadow_sample_rate=0.05, trace_sample_rate=0.01,
+        delta_fallback_frac=1.0)
+    for kern in kernels.values():
+        kern.launches = 0
+    svc = RLCService(g, index, cfg)
+    mr_ids = svc.mr_ids
+    svc.start()
+
+    last = {}
+
+    def log_wave(what, answers, wall, lat, shed):
+        """One wave's throughput and latency, and where its time went:
+        the engine's batches (executed, mean fill, execute and admission
+        time) and the scheduler's full and deadline flushes."""
+        computed = sum(a.disposition == "computed" for a in answers)
+        now = dict(svc._engine.stats())
+        now.update(full=svc.batcher.batches_full,
+                   deadline=svc.batcher.batches_deadline)
+        d = {k: now[k] - last.get(k, 0) for k in (
+            "exec_batches", "exec_s", "admit_s", "full", "deadline")}
+        last.update(now)
+        per = max(d["exec_batches"], 1)
+        log(f"phase 9 {what}: {len(answers)} submits from 4 threads in "
+            f"{wall:.3f} s = {len(answers) / wall:.0f} queries/s; future "
+            f"latency p50 {np.percentile(lat, 50) * 1e3:.3f} ms, p99 "
+            f"{np.percentile(lat, 99) * 1e3:.3f} ms (host clock); "
+            f"{computed} computed, {shed} shed; {d['exec_batches']} batches "
+            f"({computed / per:.2f} queries a batch, "
+            f"{d['exec_s'] / per * 1e3:.3f} ms each to execute; "
+            f"{d['full']} full, {d['deadline']} deadline flushes), "
+            f"admission {d['admit_s'] / len(answers) * 1e3:.3f} ms a submit; "
+            f"controller {svc.ctl.slo.stats()['batch_size']} / "
+            f"{svc.ctl.slo.stats()['max_wait_ms']} ms ({card})")
+
+    # the deltas, and the numpy builds of the graphs they make
+    drng = np.random.default_rng(SEED + 9)
+    deltas, graphs = [], [g]
+    for _ in range(2):
+        deltas.append(random_delta(graphs[-1], 32, 32, drng))
+        graphs.append(graphs[-1].apply_delta(deltas[-1]))
+    spawn = multiprocessing.get_context("spawn")
+    with ProcessPoolExecutor(2, mp_context=spawn) as pool:
+        refs = [pool.submit(numpy_reference, gr, mr_ids)
+                for gr in graphs[1:]]
+
+        # 1-2: the step-4 stream, then a repeated pass
+        for what in ("serve", "repeated pass"):
+            answers, wall, lat = submit_wave(svc, queries)
+            shed = check_wave(svc, queries, answers, svc.frozen, mr_ids, g,
+                              rng, n_oracle=256 if what == "serve" else 0)
+            log_wave(what, answers, wall, lat, shed)
+
+        # 3: two chained deltas while the engine runs
+        before = kernels["label_frontier"].launches
+        t0 = time.perf_counter()
+        svc._ensure_delta_builder()     # the traced bootstrap, timed apart
+        boot_s = time.perf_counter() - t0
+        boot_launches = kernels["label_frontier"].launches - before
+        log(f"phase 9 delta bootstrap (traced cuda build of the adopted "
+            f"graph): {boot_s:.2f} s, frontier launches {boot_launches} "
+            f"({card})")
+        if boot_launches == 0:
+            raise AssertionError("the delta bootstrap launched no frontier "
+                                 "kernel")
+        for step, delta, graph, ref in zip((1, 2), deltas, graphs[1:], refs):
+            before = kernels["label_frontier"].launches
+            t0 = time.perf_counter()
+            summary = svc.apply_delta(delta)
+            apply_s = time.perf_counter() - t0
+            launched = kernels["label_frontier"].launches - before
+            ref_entries, ref_counters, frozen, ref_s = ref.result()
+            if not np.array_equal(svc.graph.edges, graph.edges):
+                raise AssertionError(f"delta {step}: the mutated graph "
+                                     f"differs")
+            if entry_sets(svc.index) != ref_entries:
+                raise AssertionError(f"delta {step}: entries differ from a "
+                                     f"fresh numpy build")
+            if svc.build_stats.counters() != ref_counters:
+                raise AssertionError(f"delta {step}: counters differ")
+            d = summary["delta"]
+            warm = summary["warm"] or {}
+            log(f"phase 9 apply_delta {step} (32 inserts, 32 deletes): "
+                f"{apply_s:.2f} s, fallback {d['fallback']}, phases re-run "
+                f"{d['phases_rerun']} / replayed {d['phases_replayed']} of "
+                f"{d['phases_total']} (causes {d['causes']}), dirty rows "
+                f"{d['dirty_rows']}, cache "
+                f"evicted {summary['cache_evicted']}, warmed "
+                f"{warm.get('warmed')}, frontier launches {launched}; entries "
+                f"{svc.index.num_entries()} equal a fresh numpy build "
+                f"({ref_s:.2f} s in a worker process) ({card})")
+            if d["fallback"]:
+                raise AssertionError("delta_fallback_frac=1.0 fell back")
+            fresh = biased_true_queries(svc.graph, K, 300, seed=SEED + step)
+            wave = queries + fresh.true_queries + fresh.false_queries
+            answers, wall, lat = submit_wave(svc, wave)
+            shed = check_wave(svc, wave, answers, frozen, mr_ids, svc.graph,
+                              rng)
+            log_wave(f"wave after delta {step}", answers, wall, lat, shed)
+    if svc.executor.fallbacks or svc._engine.failed_batches:
+        raise AssertionError(
+            f"{svc.executor.fallbacks} fallbacks, "
+            f"{svc._engine.failed_batches} failed batches")
+
+    # 4: explain 32 true and 32 false served answers
+    served = {q: a.value for q, a in zip(wave, answers) if not a.shed}
+    picks = [q for v in (True, False)
+             for q in [q for q, x in served.items() if x == v][:32]]
+    t0 = time.perf_counter()
+    bundles = [svc.explain(*q) for q in picks]
+    explain_ms = (time.perf_counter() - t0) / len(picks) * 1e3
+    for q, b in zip(picks, bundles):
+        if b["answer"] != served[q]:
+            raise AssertionError(f"explain answer differs on {q}")
+        if b["backend"] != "cuda":
+            raise AssertionError(f"explained by {b['backend']!r}")
+        if b["answer"] and not (replay_witness(svc.graph, b)
+                                and verify_witness_entries(
+                                    svc.index, b["witness"], b["mr"])):
+            raise AssertionError(f"witness of {q} does not hold")
+    kinds = sorted({b["witness"]["kind"] for b in bundles})
+    log(f"phase 9 explain: {len(picks)} queries (32 true, 32 false), "
+        f"{explain_ms:.3f} ms a query (host clock), witness kinds {kinds}, "
+        f"positives replay under BiBFS and cite index entries ({card})")
+
+    # 5: the audit
+    t0 = time.perf_counter()
+    rep = svc.audit_report(sample=128)
+    audit_s = time.perf_counter() - t0
+    validate_audit_report(rep)
+    if rep["fingerprint"] != fingerprint(frozen):
+        raise AssertionError("audit fingerprint differs from the fresh "
+                             "numpy build's")
+    if rep["soundness"]["violations"]:
+        raise AssertionError(f"audit soundness: {rep['soundness']}")
+    log(f"phase 9 audit_report(sample=128): {audit_s:.2f} s, fingerprint "
+        f"{rep['fingerprint']['combined']} equals the numpy build's, "
+        f"soundness {rep['soundness']['violations']} of "
+        f"{rep['soundness']['sampled']} wrong, redundancy "
+        f"{rep['redundancy']['violations']} of "
+        f"{rep['redundancy']['sampled']}, device bytes "
+        f"{rep['bytes']['device']} ({card})")
+
+    # 6-7: shadow, snapshot, stats
+    svc.drain_shadow()
+    sh = svc._shadow.stats()
+    if sh["checked"] == 0 or sh["divergent"]:
+        raise AssertionError(f"shadow verification: {sh}")
+    validate_snapshot(svc.telemetry_snapshot())
+    st = validate_stats(svc.stats())
+    if st["async"] is None:
+        raise AssertionError("stats() lacks the async section")
+    log(f"phase 9 shadow: {sh['checked']} checked, {sh['divergent']} "
+        f"divergent, {sh['discarded']} discarded at deltas; snapshot and "
+        f"stats valid; async {st['async']}")
+
+    # 8: close stops every thread the service started
+    threads = [svc._engine._thread, svc.batcher._ticker]
+    svc.close()
+    alive = [th.name for th in threads if th is not None and th.is_alive()]
+    if alive or svc._shadow.running:
+        raise AssertionError(f"threads alive after close(): {alive}")
+    torch.cuda.synchronize()
+    counts = {name: kernels[name].launches
+              for name in ("mergejoin", "label_frontier")}
+    if not all(counts.values()):
+        raise AssertionError(f"a kernel of phase 9 never ran: {counts}")
+    return counts
+
+
 def entry_sets(idx):
     return tuple(tuple(sorted((v, h, m) for v, d in enumerate(maps)
                               for h, ms in d.items() for m in ms))
@@ -801,6 +1076,13 @@ def main() -> int:
         f"equal reach; launches {surface_counts}")
     launches.update(dense_counts)
     launches.update(surface_counts)
+
+    # -- the whole single-host service, counted ------------------------ #
+    t0 = time.perf_counter()
+    full_counts = run_full_service(torch, card, g, svc.index, queries,
+                                   KERNELS, rng)
+    log(f"phase 9: {time.perf_counter() - t0:.1f} s (host clock); "
+        f"launches {full_counts} (not in the kernels line)")
 
     csrc = "src/repro_torch/kernels/csrc/"
     meta = {

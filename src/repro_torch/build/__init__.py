@@ -16,6 +16,9 @@ Backends:
               (``device=``, default ``"cuda"``; request explicitly)
 ============  ==========================================================
 
+Incremental builds of a mutated graph: :mod:`repro_torch.build.delta`
+(``DeltaBuilder``, over the ``numpy`` or ``cuda`` backend).
+
 All backends produce bit-identical index entries and pruning counters.
 """
 from __future__ import annotations
@@ -29,12 +32,14 @@ from .base import (AUTO_ORDER, BuildBackend, BuildStats, PrunedInserter,
                    access_schedule, get_backend, list_backends,
                    register_backend)
 from .cuda_backend import CudaBackend
+from .delta import DeltaBuilder, DeltaResult, GraphDelta
 from .numpy_backend import NumpyBackend
 from .reference import PythonBackend
 
 __all__ = [
     "AUTO_ORDER", "BuildBackend", "BuildStats", "CudaBackend",
-    "NumpyBackend", "PrunedInserter", "PythonBackend",
+    "DeltaBuilder", "DeltaResult", "GraphDelta", "NumpyBackend",
+    "PrunedInserter", "PythonBackend",
     "access_schedule", "build_rlc_index", "build_rlc_index_with_stats",
     "get_backend", "list_backends", "register_backend",
 ]

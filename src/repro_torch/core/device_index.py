@@ -145,19 +145,47 @@ class DeviceIndex:
         return bool(self.query_batch(np.array([s]), np.array([t]),
                                      np.array([c]))[0])
 
+    def explain_batch(self, s: np.ndarray, t: np.ndarray, mr: np.ndarray,
+                      max_hubs: int = 8) -> list:
+        """Witness mode for the device join path: per query, the
+        derivation over exactly the padded rows the kernel joins,
+        gathered on the layout's device and copied to the host (PAD
+        slots dropped). Device rows carry no access-id table, so join
+        hubs report ``aid: null`` and sort by vertex id; row lengths
+        reflect the ``row_len`` truncation the layout serves with."""
+        from repro_torch.obs.explain import explain_rows
+        s = np.asarray(s)
+        t = np.asarray(t)
+        mr = np.asarray(mr)
+        oh, om = (a.cpu().numpy() for a in self.gather_out_rows(s))
+        ih, im = (a.cpu().numpy() for a in self.gather_in_rows(t))
+        return [explain_rows(oh[q], om[q], ih[q], im[q],
+                             int(s[q]), int(t[q]), int(mr[q]),
+                             pad=PAD, max_hubs=max_hubs)
+                for q in range(len(s))]
+
     # -- shard scatter/gather helpers -------------------------------------- #
+    def _rows(self, ids: np.ndarray) -> torch.Tensor:
+        """Storage rows of global vertex ids, range-checked on the host (an
+        index outside the rows would be a device-side fault on a card)."""
+        rows = np.asarray(ids, np.int64) - self.row_lo
+        if rows.size and not (rows.min() >= 0
+                              and rows.max() < self.out_hub.shape[0]):
+            raise IndexError(
+                f"vertex ids outside the stored rows [{self.row_lo}, "
+                f"{self.row_lo + self.out_hub.shape[0]})")
+        return torch.as_tensor(rows, device=self.device)
+
     def gather_out_rows(self, s: np.ndarray
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Padded ``(Q, E)`` out-row digests for a batch of source vertices
         (:func:`join_rows`'s left side). ``s`` is in global vertex ids."""
-        s = torch.as_tensor(np.asarray(s, np.int64),
-                            device=self.device) - self.row_lo
+        s = self._rows(s)
         return self.out_hub[s], self.out_mr[s]
 
     def gather_in_rows(self, t: np.ndarray
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
-        t = torch.as_tensor(np.asarray(t, np.int64),
-                            device=self.device) - self.row_lo
+        t = self._rows(t)
         return self.in_hub[t], self.in_mr[t]
 
 

@@ -223,6 +223,28 @@ class RLCIndex:
                         return True
         return False
 
+    def explain(self, s: int, t: int, L: Sequence[int],
+                mr_id: Optional[int] = None, max_hubs: int = 8) -> dict:
+        """Witness-mode Algorithm 1 over the dict layout: the same
+        Case-2 / Case-1 decision as :meth:`query`, but returning the
+        derivation (see :mod:`repro_torch.obs.explain`). ``mr_id`` only stamps
+        the witness — the dict layout joins on MR tuples."""
+        from repro_torch.obs.explain import build_witness
+        L = tuple(L)
+        if mr_id is None and self._mr_ids is not None:
+            mr_id = self._mr_ids.get(L)
+        return build_witness(
+            s, t, mr_id,
+            case2_out=self.has_out(s, t, L),
+            case2_in=self.has_in(t, s, L),
+            out_row=sum(len(ms) for ms in self.l_out[s].values()),
+            in_row=sum(len(ms) for ms in self.l_in[t].values()),
+            out_candidates=[h for h, ms in self.l_out[s].items()
+                            if L in ms],
+            in_candidates=[h for h, ms in self.l_in[t].items()
+                           if L in ms],
+            aid=self.aid, max_hubs=max_hubs)
+
     # -- vectorized PR1 batch query (Algorithm 2 insert-side) -------------- #
     def pr1_cover_out(self, hub: int, mr: LabelSeq) -> np.ndarray:
         """Packed bitset over ``y`` of ``Query(y, hub, mr^+)`` — the PR1
@@ -366,6 +388,64 @@ class FrozenRLCIndex:
         return FrozenRLCIndex(idx.num_vertices, idx.k, idx.aid,
                               oi, oh, om, ii, ih, im)
 
+    @staticmethod
+    def _row_sorted(d: EntryMap, aid: np.ndarray,
+                    mr_ids: Dict[LabelSeq, int]):
+        rows = sorted(((int(aid[h]), mr_ids[m], h) for h, ms in d.items()
+                       for m in ms))
+        return (np.asarray([r[2] for r in rows], dtype=np.int32),
+                np.asarray([r[1] for r in rows], dtype=np.int32))
+
+    def patch_rows(self, index: RLCIndex, mr_ids: Dict[LabelSeq, int],
+                   dirty_out, dirty_in, aid=None) -> "FrozenRLCIndex":
+        """Re-freeze ``index`` reusing this frozen layout's clean rows.
+
+        ``dirty_out``/``dirty_in`` are the vertex sets (any container
+        supporting ``in``) whose entry rows may differ from this frozen
+        snapshot — rows whose entries changed, plus rows whose aid sort
+        order may have shifted (they hold a hub whose access rank moved).
+        Dirty rows are re-derived from ``index``'s dict layout; clean rows
+        are copied from this object's flat arrays, skipping the per-entry
+        python sort that dominates a full :meth:`RLCIndex.freeze`. The
+        result is bit-identical to ``index.freeze(mr_ids)`` provided the
+        dirty sets cover every changed/re-ordered row — the delta-build
+        property suite enforces exactly that.
+
+        ``aid``: the hub sort order of the result; defaults to
+        ``index.aid`` (the current access order). Algorithm 1 only needs
+        *one consistent* total order on both sides of the merge join, so
+        a caller that mixes patched and unpatched row ranges across hosts
+        (the sharded service) passes ``self.aid`` instead — the stable
+        order it froze with — and then rows whose entries did not change
+        never need re-freezing at all, whatever happened to access ranks.
+        """
+        aid = np.asarray(index.aid if aid is None else aid)
+
+        def patch(old_indptr, old_hub, old_mr, maps, dirty):
+            n = len(maps)
+            hubs, mrs = [], []
+            indptr = np.zeros(n + 1, dtype=np.int64)
+            for v in range(n):
+                if v in dirty:
+                    h, m = self._row_sorted(maps[v], aid, mr_ids)
+                else:
+                    lo, hi = old_indptr[v], old_indptr[v + 1]
+                    h, m = old_hub[lo:hi], old_mr[lo:hi]
+                indptr[v + 1] = indptr[v] + len(h)
+                hubs.append(h)
+                mrs.append(m)
+            cat = lambda parts: (np.concatenate(parts)  # noqa: E731
+                                 if parts else np.empty(0, np.int32))
+            return indptr, cat(hubs).astype(np.int32), \
+                cat(mrs).astype(np.int32)
+
+        oi, oh, om = patch(self.out_indptr, self.out_hub, self.out_mr,
+                           index.l_out, dirty_out)
+        ii, ih, im = patch(self.in_indptr, self.in_hub, self.in_mr,
+                           index.l_in, dirty_in)
+        return FrozenRLCIndex(index.num_vertices, index.k, aid,
+                              oi, oh, om, ii, ih, im)
+
     def row_out(self, s: int) -> Tuple[np.ndarray, np.ndarray]:
         """Zero-copy ``(hub, mr)`` view of L_out(s), aid-sorted."""
         o0, o1 = self.out_indptr[s], self.out_indptr[s + 1]
@@ -382,12 +462,26 @@ class FrozenRLCIndex:
         ih, im = self.row_in(t)
         return merge_join_rows(oh, om, ih, im, self.aid, s, t, mr_id)
 
+    def explain(self, s: int, t: int, mr_id: int,
+                max_hubs: int = 8) -> dict:
+        """Witness-mode :meth:`query`: the derivation Algorithm 1's
+        merge join performs over this layout's two CSR rows (see
+        :mod:`repro_torch.obs.explain` for the witness shape)."""
+        from repro_torch.obs.explain import explain_rows
+        oh, om = self.row_out(int(s))
+        ih, im = self.row_in(int(t))
+        return explain_rows(oh, om, ih, im, int(s), int(t), int(mr_id),
+                            aid=self.aid, max_hubs=max_hubs)
+
     def query_batch(self, s: Sequence[int], t: Sequence[int],
-                    mr_id: Sequence[int]) -> np.ndarray:
+                    mr_id: Sequence[int], witness: bool = False):
         """Vectorized-per-query Algorithm 1 over the flat numpy layout.
 
         The frozen-numpy serving backend: no device transfer, no padding —
-        each query touches only its two CSR rows.
+        each query touches only its two CSR rows. With ``witness=True``
+        returns ``(answers, witnesses)`` — one :meth:`explain` record per
+        query — instead of the bare answer array (opt-in: the witness
+        walk is strictly more work than the merge join).
         """
         s = np.asarray(s)
         t = np.asarray(t)
@@ -395,6 +489,10 @@ class FrozenRLCIndex:
         out = np.zeros(len(s), dtype=bool)
         for q in range(len(s)):
             out[q] = self.query(int(s[q]), int(t[q]), int(mr_id[q]))
+        if witness:
+            ws = [self.explain(int(s[q]), int(t[q]), int(mr_id[q]))
+                  for q in range(len(s))]
+            return out, ws
         return out
 
     @property

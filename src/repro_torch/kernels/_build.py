@@ -97,8 +97,11 @@ class Kernel:
 
     ``launches`` grows by one for every launch the entry point accepted,
     and nowhere else; a run reads it to show which kernels its path went
-    through. A non-zero ``cudaError_t`` from the entry point (which
-    returns ``cudaGetLastError()`` right after the launch) raises.
+    through. The count is kept under a lock, because the service launches
+    from more than one thread (the async engine's batches, the caller's
+    builds and warm batches). A non-zero ``cudaError_t`` from the entry
+    point (which returns ``cudaGetLastError()`` right after the launch)
+    raises.
     """
 
     def __init__(self, source: str, symbol: str,
@@ -108,6 +111,7 @@ class Kernel:
         self.argtypes = list(argtypes)
         self.launches = 0
         self._fn = None
+        self._count_lock = threading.Lock()
 
     def _bind(self):
         if self._fn is None:
@@ -122,4 +126,5 @@ class Kernel:
         if err != 0:
             raise RuntimeError(
                 f"{self.symbol} failed to launch: cudaError_t {err}")
-        self.launches += 1
+        with self._count_lock:
+            self.launches += 1

@@ -1,4 +1,4 @@
-"""Online RLC query serving (the synchronous path).
+"""Online RLC query serving on one host.
 
 * :mod:`repro_torch.service.expr` — textual ``(l1 l2 ...)+`` constraint
   parser with alphabet / ``k`` validation and minimum-repeat
@@ -10,22 +10,37 @@
 * :mod:`repro_torch.service.executor` — multi-backend batch executor
   (cuda kernel / torch sorted / numpy CSR / python): the kernel alone on
   a CUDA layout, a counted fallback chain on a CPU layout;
+* :mod:`repro_torch.service.control` — the closed-loop control plane:
+  SLO-aware per-MR-length batching, admission control with explicit
+  ``SHED`` answers, and frequency-sketch-prioritized cache warming;
 * :mod:`repro_torch.service.answer` — the typed :class:`Answer` result
-  (value + disposition + backend attribution);
+  (value + disposition + backend attribution) and the :data:`SHED`
+  sentinel;
+* :mod:`repro_torch.service.lifecycle` — async admission: ``submit()``
+  futures behind the ``start()``/``close()`` protocol;
+* :mod:`repro_torch.service.stats` — the versioned
+  ``repro.service.stats/1`` stats schema, with :func:`validate_stats`;
 * :mod:`repro_torch.service.service` — the :class:`RLCService` facade
   wiring build -> freeze -> device transfer -> serve.
 """
-from .answer import DISPOSITIONS, Answer
+from .answer import DISPOSITIONS, SHED, Answer
 from .cache import CacheStats, ResultCache
+from .control import (AdmissionController, CacheWarmer, ControlPlane,
+                      FrequencySketch, SLOBatchController, VirtualClock)
 from .executor import BACKENDS, BatchExecutor, ExecutorError
 from .expr import ExpressionError, PathExpression, parse_expression
+from .lifecycle import AsyncEngine
 from .metrics import LatencyRecorder
 from .scheduler import Batch, MicroBatcher, Request
 from .service import RLCService, ServiceConfig
+from .stats import STATS_SCHEMA, validate_stats
 
 __all__ = [
-    "Answer", "BACKENDS", "Batch", "BatchExecutor", "CacheStats",
-    "DISPOSITIONS", "ExecutorError", "ExpressionError", "LatencyRecorder",
-    "MicroBatcher", "PathExpression", "RLCService", "Request",
-    "ResultCache", "ServiceConfig", "parse_expression",
+    "Answer", "BACKENDS", "AdmissionController", "AsyncEngine", "Batch",
+    "BatchExecutor", "CacheStats", "CacheWarmer", "ControlPlane",
+    "DISPOSITIONS", "ExecutorError", "ExpressionError", "FrequencySketch",
+    "LatencyRecorder", "MicroBatcher", "PathExpression", "RLCService",
+    "Request", "ResultCache", "SHED", "SLOBatchController",
+    "STATS_SCHEMA", "ServiceConfig", "VirtualClock", "parse_expression",
+    "validate_stats",
 ]

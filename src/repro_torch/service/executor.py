@@ -58,8 +58,6 @@ class BatchExecutor:
         self.index = index
         self.frozen = frozen
         self.device_index = device_index
-        self.on_cuda = (device_index is not None
-                        and device_index.device.type == "cuda")
         self.id_to_mr = list(id_to_mr) if id_to_mr is not None else None
         self.backend = backend
         if self.on_cuda:
@@ -90,6 +88,13 @@ class BatchExecutor:
             desc="batches not answered by the first-choice backend",
             labelnames=("from", "to", "shard"))
         self._shard = shard
+
+    @property
+    def on_cuda(self) -> bool:
+        """Whether the device layout (repointed by ``apply_delta``) lies
+        on a CUDA device."""
+        return (self.device_index is not None
+                and self.device_index.device.type == "cuda")
 
     # ------------------------------------------------------------------ #
     def available(self, backend: str) -> bool:
@@ -169,6 +174,46 @@ class BatchExecutor:
                     raise
         raise ExecutorError(
             f"all backends failed for batch of {n} queries") from last_err
+
+    def explain_batch(self, s: np.ndarray, t: np.ndarray,
+                      mr_id: np.ndarray, n_real: Optional[int] = None,
+                      backend: Optional[str] = None,
+                      max_hubs: int = 8) -> Tuple[list, str]:
+        """Witness mode of :meth:`execute`: per-query derivations instead
+        of bare booleans; returns ``(witnesses[:n_real], backend)``.
+
+        The backend is resolved as ``execute`` resolves it, so the
+        witness reflects the layout the serving path joins — device
+        backends explain over the padded device rows, ``numpy`` over the
+        frozen CSR, ``python`` over the dict layout. On a CUDA layout a
+        failure of the device rows raises; on a CPU layout it falls back
+        to the CSR rows, as ``execute`` falls back.
+        """
+        first = self.resolve(backend)
+        n = len(s) if n_real is None else int(n_real)
+        if first in ("cuda", "sorted") and self.device_index is not None:
+            try:
+                ws = self.device_index.explain_batch(s[:n], t[:n],
+                                                     mr_id[:n],
+                                                     max_hubs=max_hubs)
+                return ws, first
+            except Exception:  # noqa: BLE001 — degrade like execute()
+                if self.on_cuda:
+                    raise
+        if self.frozen is not None:
+            ws = [self.frozen.explain(int(s[q]), int(t[q]),
+                                      int(mr_id[q]), max_hubs=max_hubs)
+                  for q in range(n)]
+            return ws, "numpy"
+        if self.id_to_mr is None:
+            raise ExecutorError("no backend can explain this batch")
+        ws = []
+        for q in range(n):
+            mr = self.id_to_mr[int(mr_id[q])]
+            ws.append(self.index.explain(int(s[q]), int(t[q]), mr,
+                                         mr_id=int(mr_id[q]),
+                                         max_hubs=max_hubs))
+        return ws, "python"
 
     def _run(self, backend: str, s, t, mr_id, n: int) -> np.ndarray:
         # torch runs eagerly: no backend needs the batch padded to a
