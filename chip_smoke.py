@@ -55,10 +55,21 @@ points a user calls:
    and held against a fresh ``numpy`` build of the mutated graph),
    then ``explain``, ``audit_report``, ``drain_shadow``, the telemetry
    snapshot and ``stats()`` are checked and ``close()`` must stop every
-   thread it started.
+   thread it started;
+10. sharded serving on the card (:func:`run_sharded`): the step-3 index
+    adopted by ``ShardedRLCService`` at 2 and 4 shards x 2 replicas,
+    each shard's row-windowed layout on the card; the step-4 stream
+    through ``query_batch``, a ``submit()`` wave from four threads and a
+    wave with a ``hot_swap()`` from a second thread, at 4 shards also one
+    ``apply_delta`` of 32 + 32 edges held against a fresh ``numpy``
+    build; every answer equal to step 4's, no digest join off the card,
+    the merge kernel launched on every shard's layout; then the same
+    stream over ``transport="rpc"`` (two shard-host processes answering
+    from the host), equal to the in-process answers.
 
-Launch counts are reset to 0 right before steps 3-4, 7, 8 and 9 and read
-right after each; the ``kernels`` line reports each kernel's count from
+Launch counts are reset to 0 right before steps 3-4, 7, 8, 9 and each
+configuration of 10 and read right after each; the ``kernels`` line
+reports each kernel's count from
 the path that runs it. The merge join, the frontier wave,
 ``frontier_steps`` and ``bitpack_matmul`` take less time on the card
 than a launch from Python, so their kernel times are taken from a
@@ -838,6 +849,261 @@ def run_full_service(torch, card, g, index, queries, kernels, rng) -> dict:
     return counts
 
 
+def batch_timer(svc) -> list:
+    """Wrap ``svc._run_batch`` so each executed batch appends its host
+    seconds to the returned list (the async engine's thread included)."""
+    lat, run = [], svc._run_batch
+
+    def timed(batch, tr=None):
+        t0 = time.perf_counter()
+        out = run(batch, tr)
+        lat.append(time.perf_counter() - t0)
+        return out
+
+    svc._run_batch = timed
+    return lat
+
+
+def pct(xs, p: float) -> float:
+    return float(np.percentile(xs, p)) * 1e3 if len(xs) else 0.0
+
+
+def run_sharded(torch, card, g, index, queries, want, kernels, rng) -> dict:
+    """Phase 10: sharded serving on the card, counted.
+
+    Adopts ``index`` into ``ShardedRLCService`` at 2 and 4 shards x 2
+    replicas, all shards' row-windowed layouts on the card: a synchronous
+    pass of ``queries``, a ``submit()`` wave from 4 threads, and a wave
+    during which a second thread runs ``hot_swap()``; at 4 shards also
+    the delta builder's bootstrap and one ``apply_delta`` of 32 inserts
+    and 32 deletes, held against a fresh ``numpy`` build of the mutated
+    graph (made in a worker process meanwhile). Every answer must equal
+    ``want`` (the single-host service's answers, equal to the CSR join);
+    no digest join may leave the card, no sub-batch may degrade (the swap
+    publishes every shard at once, between batches), the bootstrap and
+    the apply must each launch the frontier kernel, and every shard's
+    layout must have launched the merge kernel. Then ``transport="rpc"``
+    on ``device="cpu"`` (2 shard-host processes, answering from the host)
+    serves the stream; its answers must equal the in-process ones and
+    ``close()`` must leave no worker alive. Returns the phase's
+    merge-join launches by configuration."""
+    import multiprocessing
+    import threading
+    from concurrent.futures import ProcessPoolExecutor
+
+    from repro_torch.core.minimum_repeat import mr_id_space
+    from repro_torch.core.queries import biased_true_queries
+    from repro_torch.graphgen import random_delta
+    from repro_torch.obs.audit import device_nbytes
+    from repro_torch.service import (ShardedRLCService, ShardedServiceConfig,
+                                     validate_stats)
+
+    t_phase = time.perf_counter()
+    base = dict(k=K, batch_size=32, max_wait_ms=2.0, device="cuda")
+    delta = random_delta(g, 32, 32, np.random.default_rng(SEED + 10))
+    mutated = g.apply_delta(delta)
+    out = {}
+
+    def check(what, svc, answers):
+        if [a.value for a in answers] != want:
+            raise AssertionError(f"phase 10 {what}: answers differ from the "
+                                 f"single-host service and the CSR join")
+        computed = {a.backend for a in answers
+                    if a.disposition == "computed"}
+        if computed - {"cuda", "digest"}:
+            raise AssertionError(f"phase 10 {what}: computed answers came "
+                                 f"from {computed}")
+
+    def fanout_line(svc):
+        ex = svc.fanout.stats()
+        local = sum(c for k, c in ex["sub_batches"].items()
+                    if k.split("->")[0] == k.split("->")[1])
+        remote = sum(ex["sub_batches"].values()) - local
+        return (ex, f"sub-batches {local} local / {remote} remote, device "
+                    f"digest joins {ex['remote_joins_device']}, numpy digest "
+                    f"joins {ex['remote_joins_numpy']}, digest bytes "
+                    f"{ex['digest_bytes']}, degraded {ex['degraded']}")
+
+    spawn = multiprocessing.get_context("spawn")
+    with ProcessPoolExecutor(1, mp_context=spawn) as pool:
+        ref = pool.submit(numpy_reference, mutated,
+                          mr_id_space(g.num_labels, K))
+        for S in (2, 4):
+            name = f"{S} shards x 2 replicas"
+            for kern in kernels.values():
+                kern.launches = 0
+            t0 = time.perf_counter()
+            svc = ShardedRLCService(g, index, ShardedServiceConfig(
+                num_shards=S, num_replicas=2, delta_fallback_frac=1.0,
+                **base))
+            setup_s = time.perf_counter() - t0
+            lat = batch_timer(svc)
+            # shard 0's first layout, the shape the passes below serve
+            windowed = svc.shards[0].replicas[0].device_index
+            for rs in svc.shards:
+                d = rs.replicas[0].device_index
+                if d.device.type != "cuda" or rs.replicas[1].device_index \
+                        is not d:
+                    raise AssertionError(f"shard {rs.shard_id}: layout not "
+                                         f"shared on the card")
+                log(f"phase 10 {name} shard {rs.shard_id}: rows "
+                    f"[{rs.lo}, {rs.hi}), E={d.row_len}, "
+                    f"{rs.replicas[0].frozen.num_entries()} entries, device "
+                    f"bytes {device_nbytes(d)} on {d.device}")
+            # 1: the stream, synchronously
+            t0 = time.perf_counter()
+            answers = svc.query_batch(queries)
+            wall = time.perf_counter() - t0
+            check(f"{name} query_batch", svc, answers)
+            ex, fl = fanout_line(svc)
+            log(f"phase 10 {name} query_batch: {len(queries)} queries in "
+                f"{wall:.3f} s = {len(queries) / wall:.0f} queries/s; "
+                f"{len(lat)} batches, batch latency p50 {pct(lat, 50):.3f} "
+                f"ms, p99 {pct(lat, 99):.3f} ms (host clock); {fl}; setup "
+                f"(freeze, plan, layouts) {setup_s:.2f} s ({card})")
+            # 2: a submit() wave from 4 threads (SLO controller off)
+            svc.cache.clear()
+            del lat[:]
+            svc.start()
+            answers, wall, flat = submit_wave(svc, queries)
+            check(f"{name} submit", svc, answers)
+            ex, fl = fanout_line(svc)
+            log(f"phase 10 {name} submit: {len(queries)} submits from 4 "
+                f"threads in {wall:.3f} s = {len(queries) / wall:.0f} "
+                f"queries/s; future latency p50 {pct(flat, 50):.3f} ms, p99 "
+                f"{pct(flat, 99):.3f} ms; {len(lat)} batches, batch latency "
+                f"p50 {pct(lat, 50):.3f} ms, p99 {pct(lat, 99):.3f} ms (host "
+                f"clock); {fl} ({card})")
+            if ex["degraded"] or ex["remote_joins_numpy"]:
+                raise AssertionError(f"phase 10 {name}: {fl}")
+            # 3: a hot swap from a second thread in the middle of a wave
+            svc.cache.clear()
+            swap = {}
+            before = svc._engine.stats()["submitted"]
+
+            def swapper():
+                while svc._engine.stats()["submitted"] - before < \
+                        len(queries) // 3:
+                    time.sleep(0.001)
+                t1 = time.perf_counter()
+                swap["generation"] = svc.hot_swap()
+                swap["s"] = time.perf_counter() - t1
+
+            th = threading.Thread(target=swapper)
+            th.start()
+            answers, wall, flat = submit_wave(svc, queries)
+            th.join(timeout=300)
+            if th.is_alive() or swap.get("generation") != 1:
+                raise AssertionError(f"phase 10 {name}: hot swap {swap}")
+            check(f"{name} swap wave", svc, answers)
+            ex, fl = fanout_line(svc)
+            log(f"phase 10 {name} hot_swap during a wave: swap "
+                f"{swap['s']:.3f} s (host clock), wave of "
+                f"{svc._engine.stats()['submitted'] - before} submits "
+                f"{wall:.3f} s; {fl} ({card})")
+            if ex["degraded"] or ex["remote_joins_numpy"]:
+                raise AssertionError(f"phase 10 {name} swap wave: {fl}")
+            # the swapped layouts serve
+            svc.cache.clear()
+            check(f"{name} after swap", svc, svc.query_batch(queries))
+            if S == 4:
+                # 4: the delta builder's bootstrap, then one apply, each
+                # through the frontier kernel of the cuda delta backend
+                frontier = kernels["label_frontier"]
+                before = frontier.launches
+                t0 = time.perf_counter()
+                svc._ensure_delta_builder()
+                boot_s = time.perf_counter() - t0
+                boot_launches = frontier.launches - before
+                before = frontier.launches
+                t0 = time.perf_counter()
+                summary = svc.apply_delta(delta)
+                apply_s = time.perf_counter() - t0
+                apply_launches = frontier.launches - before
+                if not (boot_launches and apply_launches):
+                    raise AssertionError(
+                        f"phase 10 delta: frontier launches {boot_launches} "
+                        f"(bootstrap), {apply_launches} (apply)")
+                ref_entries, ref_counters, frozen, ref_s = ref.result()
+                if entry_sets(svc.index) != ref_entries or \
+                        svc.build_stats.counters() != ref_counters:
+                    raise AssertionError("phase 10 delta: entries or "
+                                         "counters differ from a fresh "
+                                         "numpy build")
+                d = summary["delta"]
+                if d["fallback"]:
+                    raise AssertionError("delta_fallback_frac=1.0 fell back")
+                fresh = biased_true_queries(svc.graph, K, 300, seed=SEED + 10)
+                wave = queries + fresh.true_queries + fresh.false_queries
+                got = svc.query_batch(wave)
+                csr = frozen.query_batch(
+                    [q[0] for q in wave], [q[1] for q in wave],
+                    [svc.mr_ids[q[2]] for q in wave])
+                if [a.value for a in got] != csr.tolist():
+                    raise AssertionError("phase 10 delta: answers differ "
+                                         "from a fresh numpy build")
+                log(f"phase 10 {name} delta: bootstrap (traced cuda build, "
+                    f"hot swap onto it) {boot_s:.2f} s, frontier launches "
+                    f"{boot_launches}; apply_delta (32 inserts, 32 deletes) "
+                    f"{apply_s:.2f} s, frontier launches {apply_launches}, "
+                    f"phases re-run "
+                    f"{d['phases_rerun']} of {d['phases_total']}, shards "
+                    f"touched {summary['shards_touched']}; {len(wave)} "
+                    f"answers equal a fresh numpy build ({ref_s:.2f} s in a "
+                    f"worker process) ({card})")
+            ex, fl = fanout_line(svc)
+            if ex["remote_joins_numpy"] or ex["degraded"]:
+                raise AssertionError(f"phase 10 {name}: {fl}")
+            validate_stats(svc.stats())
+            svc.close()
+            torch.cuda.synchronize()
+            launches = kernels["mergejoin"].launches
+            per_shard = [rs.backend_totals().get("cuda", {}).get("batches", 0)
+                         for rs in svc.shards]
+            if not all(per_shard) or launches != sum(per_shard):
+                raise AssertionError(f"phase 10 {name}: merge launches "
+                                     f"{launches}, by shard {per_shard}")
+            log(f"phase 10 {name}: merge-join launches {launches} (by shard "
+                f"{per_shard}), frontier launches "
+                f"{kernels['label_frontier'].launches} ({card})")
+            out[name] = launches
+            del svc
+
+    # a served windowed batch, timed alone (not counted)
+    log("phase 10, a served windowed batch (4 shards, shard 0's first "
+        "layout):")
+    check_mergejoin(torch, windowed, rng, windowed=True, Q=32)
+
+    # 5: the same stream over RPC: 2 shard-host processes, from the host
+    t0 = time.perf_counter()
+    rpc = ShardedRLCService(g, index, ShardedServiceConfig(
+        num_shards=2, num_replicas=1, transport="rpc",
+        **dict(base, device="cpu")))
+    boot_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    answers = rpc.query_batch(queries)
+    wall = time.perf_counter() - t0
+    if [a.value for a in answers] != want:
+        raise AssertionError("phase 10 rpc: answers differ from in-process")
+    st = validate_stats(rpc.stats())
+    procs = [h.proc for hs in rpc.cluster.handles.values() for h in hs]
+    rpc.close()
+    alive = [p.pid for p in procs if p.is_alive()]
+    if alive:
+        raise AssertionError(f"rpc workers alive after close(): {alive}")
+    ex = st["executor"]
+    log(f"phase 10 rpc 2 shards x 1 replica: fleet up in {boot_s:.2f} s, "
+        f"{len(queries)} queries in {wall:.3f} s = {len(queries) / wall:.0f} "
+        f"queries/s (host clock, numpy in the workers), sub-batches "
+        f"{ex['sub_batches']}, rpc digest joins {ex['remote_joins_rpc']}, "
+        f"digest bytes {ex['digest_bytes']}, wire bytes "
+        f"{st['rpc']['wire_bytes']}; equal to in-process; no worker alive "
+        f"after close() ({card})")
+    log(f"phase 10: {time.perf_counter() - t_phase:.1f} s (host clock) "
+        f"({card})")
+    return out
+
+
 def entry_sets(idx):
     return tuple(tuple(sorted((v, h, m) for v, d in enumerate(maps)
                               for h, ms in d.items() for m in ms))
@@ -1083,6 +1349,12 @@ def main() -> int:
                                    KERNELS, rng)
     log(f"phase 9: {time.perf_counter() - t0:.1f} s (host clock); "
         f"launches {full_counts} (not in the kernels line)")
+
+    # -- sharded serving, in process and over RPC, counted ------------- #
+    sharded_counts = run_sharded(torch, card, g, svc.index, queries,
+                                 [a.value for a in answers], KERNELS, rng)
+    log(f"phase 10 merge-join launches {sharded_counts} (not in the kernels "
+        f"line)")
 
     csrc = "src/repro_torch/kernels/csrc/"
     meta = {

@@ -37,8 +37,8 @@ class DeviceIndex:
 
     With ``row_lo > 0`` the tensors hold only the vertex-row window
     ``[row_lo, row_lo + rows)`` (a shard's slice): query/hub *ids* stay
-    global, only row storage is windowed. Callers must only query
-    vertices inside the window.
+    global, only row storage is windowed. Every query mode raises
+    ``IndexError`` for a vertex id outside the window.
     """
 
     num_vertices: int
@@ -126,16 +126,18 @@ class DeviceIndex:
                 self.out_hub, self.out_mr, self.in_hub, self.in_mr,
                 s, t, mr, row_base_out=self.row_lo, row_base_in=self.row_lo)
             return out.cpu().numpy()
+        # storage rows, range-checked on the host as the kernel's wrapper
+        # checks them: an id outside the window raises IndexError
+        s_row, t_row = self._rows(s), self._rows(t)
         s, t, mr = (torch.as_tensor(np.asarray(a, np.int32),
                                     device=self.device) for a in (s, t, mr))
         if method == "sorted":
             out = _query_batch_sorted_rows(
-                self.out_key, self.in_key, s - self.row_lo,
-                t - self.row_lo, s, t, mr, self.num_mrs)
+                self.out_key, self.in_key, s_row, t_row, s, t, mr,
+                self.num_mrs)
         else:
             out = _query_batch_rows(self.out_hub, self.out_mr, self.in_hub,
-                                    self.in_mr, s - self.row_lo,
-                                    t - self.row_lo, s, t, mr)
+                                    self.in_mr, s_row, t_row, s, t, mr)
         return out.cpu().numpy()
 
     def query(self, s: int, t: int, L: Sequence[int]) -> bool:

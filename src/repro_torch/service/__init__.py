@@ -1,4 +1,4 @@
-"""Online RLC query serving on one host.
+"""Online RLC query serving: one host, sharded, or over RPC.
 
 * :mod:`repro_torch.service.expr` — textual ``(l1 l2 ...)+`` constraint
   parser with alphabet / ``k`` validation and minimum-repeat
@@ -21,7 +21,14 @@
 * :mod:`repro_torch.service.stats` — the versioned
   ``repro.service.stats/1`` stats schema, with :func:`validate_stats`;
 * :mod:`repro_torch.service.service` — the :class:`RLCService` facade
-  wiring build -> freeze -> device transfer -> serve.
+  wiring build -> freeze -> device transfer -> serve;
+* :mod:`repro_torch.service.sharded` — sharded serving: shard planner,
+  two-sided router, replica sets with hot-swap, scatter/gather fan-out
+  behind the drop-in :class:`ShardedRLCService` facade, each shard's
+  row-windowed layout on its own device;
+* :mod:`repro_torch.service.rpc` — multi-process serving: shard-host
+  worker processes, answering from the host, behind a message-based
+  RPC transport (``ShardedServiceConfig(transport="rpc")``).
 """
 from .answer import DISPOSITIONS, SHED, Answer
 from .cache import CacheStats, ResultCache
@@ -33,6 +40,7 @@ from .lifecycle import AsyncEngine
 from .metrics import LatencyRecorder
 from .scheduler import Batch, MicroBatcher, Request
 from .service import RLCService, ServiceConfig
+from .sharded import ShardedRLCService, ShardedServiceConfig
 from .stats import STATS_SCHEMA, validate_stats
 
 __all__ = [
@@ -41,6 +49,7 @@ __all__ = [
     "DISPOSITIONS", "ExecutorError", "ExpressionError", "FrequencySketch",
     "LatencyRecorder", "MicroBatcher", "PathExpression", "RLCService",
     "Request", "ResultCache", "SHED", "SLOBatchController",
-    "STATS_SCHEMA", "ServiceConfig", "VirtualClock", "parse_expression",
+    "STATS_SCHEMA", "ServiceConfig", "ShardedRLCService",
+    "ShardedServiceConfig", "VirtualClock", "parse_expression",
     "validate_stats",
 ]

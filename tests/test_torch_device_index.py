@@ -86,3 +86,33 @@ def test_row_digests_equal(carried):
         for x, y in zip(a, b):
             np.testing.assert_array_equal(x.numpy(), np.asarray(y))
     assert t.query(3, 7, (0,)) == j.query(3, 7, (0,))
+
+
+@pytest.mark.parametrize("method", ["dense", "sorted"])
+@pytest.mark.parametrize("side", ["s", "t"])
+@pytest.mark.parametrize("ids", [range(0, 20), range(40, 60)],
+                         ids=["below", "above"])
+def test_windowed_joins_reject_ids_outside_the_rows(method, side, ids):
+    """A row-windowed layout raises ``IndexError`` for an id outside its
+    window in the dense and sorted joins, as the kernel's wrapper does
+    (``test_torch_kernels.py::test_wrappers_reject_ids_outside_the_rows``),
+    instead of reading another vertex's row or faulting on the card."""
+    from repro_torch.build import build_rlc_index as t_build
+    from repro_torch.graphgen import erdos_renyi as t_er
+    g = t_er(60, 3.0, 2, seed=1)
+    ids_ = mr_id_space(2, 2)
+    frozen = t_build(g, 2, backend="numpy").freeze(ids_)
+    d = DeviceIndex.from_frozen(frozen.slice_rows(20, 40), ids_,
+                                rows=(20, 40), device="cpu")
+    inside = np.full(1, 30)
+    for v in ids:
+        q = dict(s=inside, t=inside, mr=np.zeros(1, np.int64))
+        q[side] = np.array([v])
+        with pytest.raises(IndexError):
+            d.query_batch(q["s"], q["t"], q["mr"], method=method)
+    # ids inside the window still answer as the CSR join does
+    s = np.arange(20, 40)
+    t = np.full(20, 30)
+    mr = np.zeros(20, np.int64)
+    np.testing.assert_array_equal(d.query_batch(s, t, mr, method=method),
+                                  frozen.query_batch(s, t, mr))
