@@ -65,10 +65,23 @@ points a user calls:
     build; every answer equal to step 4's, no digest join off the card,
     the merge kernel launched on every shard's layout; then the same
     stream over ``transport="rpc"`` (two shard-host processes answering
-    from the host), equal to the in-process answers.
+    from the host), equal to the in-process answers;
+11. the parallel build and the distributed dense engine
+    (:func:`run_parallel_build`, :func:`run_distributed`):
+    ``RLCService.build`` with ``build_backend="parallel"`` (4 host
+    workers through the process executor, spawned, not forked, since
+    this process holds a CUDA context), whose entries and counters must
+    equal step 3's and the ``numpy`` build's, serving step 4's queries
+    from the merge kernel; then a 1 x 1 NCCL mesh on ``cuda:0``:
+    ``distributed_all_mr_reach`` (one ``bool_matmul`` launch and one
+    all-gather a product) equal to step 7's ``reach``,
+    ``distributed_build(hub_batch=8)`` equal to step 7's condensed
+    index, and ``distributed_query_batch`` on step 7's 3,767,616 queries
+    (merge kernel) equal to ``reach`` and, on a sample, the CSR join.
 
-Launch counts are reset to 0 right before steps 3-4, 7, 8, 9 and each
-configuration of 10 and read right after each; the ``kernels`` line
+Launch counts are reset to 0 right before steps 3-4, 7, 8, 9, each
+configuration of 10 and each part of 11, and read right after each; the
+``kernels`` line
 reports each kernel's count from
 the path that runs it. The merge join, the frontier wave,
 ``frontier_steps`` and ``bitpack_matmul`` take less time on the card
@@ -1110,6 +1123,200 @@ def entry_sets(idx):
                  for maps in (idx.l_out, idx.l_in))
 
 
+def run_parallel_build(torch, card, g, cuda_build, numpy_build, queries,
+                       want, kernels) -> dict:
+    """Phase 11, part 1: ``RLCService.build`` with the ``parallel``
+    backend at AD size, 4 workers through the process executor, then
+    serving on the card, counted.
+
+    ``cuda_build`` and ``numpy_build`` are step 3's service and the
+    ``numpy`` build's ``(index, stats)``: the parallel build's entries and
+    pruning counters must equal both. The build must have run the
+    parallel protocol with process workers that were not forked (the
+    caller holds a CUDA context), every computed answer to ``queries``
+    must come from backend ``cuda`` with no fallback, equal to ``want``
+    (step 4's answers), the merge kernel must have launched, and
+    ``close()`` must leave no worker process alive. Returns the merge
+    launches."""
+    import multiprocessing
+    import os
+
+    from repro_torch.service import RLCService, ServiceConfig
+
+    # the reference's default width, stated; the start method is left to
+    # the backend (spawn once CUDA is up)
+    os.environ["RLC_PARALLEL_WORKERS"] = "4"
+    if "RLC_PARALLEL_MP_CONTEXT" in os.environ:
+        raise AssertionError("RLC_PARALLEL_MP_CONTEXT is set: phase 11 "
+                             "checks the backend's own start method")
+    before = {p.pid for p in multiprocessing.active_children()}
+
+    def build_and_serve():
+        t0 = time.perf_counter()
+        psvc = RLCService.build(g, ServiceConfig(
+            k=K, device="cuda", build_backend="parallel"))
+        build_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        answers = psvc.query_batch(queries)
+        torch.cuda.synchronize()
+        return psvc, build_s, answers, time.perf_counter() - t0
+
+    (psvc, build_s, answers, serve_s), counts = counted(
+        torch, kernels, ("mergejoin",), build_and_serve)
+    info, st = psvc.build_info, psvc.build_stats
+    ref_idx, ref_stats = numpy_build
+    if (info.get("mode"), info.get("executor"), info.get("workers")) != (
+            "parallel", "process", 4):
+        raise AssertionError(f"phase 11 parallel build ran {info}")
+    if info.get("start_method") in (None, "fork"):
+        raise AssertionError(f"phase 11 parallel build workers started by "
+                             f"{info.get('start_method')!r}")
+    got = entry_sets(psvc.index)
+    if got != entry_sets(cuda_build.index) or got != entry_sets(ref_idx):
+        raise AssertionError("phase 11 parallel build entries differ from "
+                             "the cuda / numpy builds")
+    if st.counters() != cuda_build.build_stats.counters() \
+            or st.counters() != ref_stats.counters():
+        raise AssertionError("phase 11 parallel build counters differ from "
+                             "the cuda / numpy builds")
+    computed = [a for a in answers if a.disposition == "computed"]
+    if {a.backend for a in computed} != {"cuda"} or psvc.executor.fallbacks:
+        raise AssertionError(
+            f"phase 11 parallel-built service served from "
+            f"{ {a.backend for a in computed} }, fallbacks "
+            f"{psvc.executor.fallbacks}")
+    if [a.value for a in answers] != want:
+        raise AssertionError("phase 11 parallel-built service answers "
+                             "differ from step 4's")
+    psvc.close()
+    alive = [p.pid for p in multiprocessing.active_children()
+             if p.pid not in before]
+    if alive:
+        raise AssertionError(f"phase 11 build workers alive after close(): "
+                             f"{alive}")
+    dag = info["dag"]
+    log(f"phase 11 parallel build (4 workers, process executor, start "
+        f"method {info['start_method']}): {build_s:.2f} s wall for "
+        f"RLCService.build (build {st.wall_time_s:.2f} s: schedule "
+        f"analysis {info['dag_s']:.2f} s, worker start-up "
+        f"{info['startup_s']:.2f} s, epoch loop "
+        f"{st.wall_time_s - info['dag_s'] - info['startup_s']:.2f} s), "
+        f"makespan {info['makespan_s']:.3f} s, epochs {info['epochs']}, stale "
+        f"re-runs {info['stale_reruns']}, worker busy s "
+        f"{info['worker_busy_s']}, coordinator serial "
+        f"{info['parent_serial_s']:.3f} s; DAG phases {dag['phases']}, "
+        f"edges {dag['edges']}, depth {dag['depth']}, serial fraction "
+        f"{dag.get('serial_fraction')}"
+        f"{', thinned' if info.get('thinned') else ''}; entries "
+        f"{psvc.index.num_entries()} and counters equal to the cuda "
+        f"and numpy builds ({card})")
+    log(f"phase 11 parallel-built service: {len(queries)} queries in "
+        f"{serve_s:.3f} s ({len(computed)} computed) from backend cuda, "
+        f"fallbacks 0, equal to step 4's answers; merge launches "
+        f"{counts['mergejoin']}; no worker alive after close() ({card})")
+    return counts
+
+
+def run_distributed(torch, card, g, reach, condensed, big_q, kernels,
+                    rng) -> dict:
+    """Phase 11, part 2: the distributed dense engine on a 1 x 1 NCCL
+    mesh on ``cuda:0``, counted.
+
+    ``distributed_all_mr_reach`` must equal ``reach`` (phase 7's
+    ``DenseEngine.reach``) with one ``bool_matmul`` launch a product (the
+    MR chain products and ``C x ceil(log2 n)`` doubling steps);
+    ``distributed_build(hub_batch=8)``'s entries must equal
+    ``condensed`` (phase 7's condensed index); ``distributed_query_batch``
+    over that index on ``big_q`` (phase 7's 3,767,616 queries) must equal
+    ``reach`` on every query, and the host CSR join on a sample of
+    200,000 (the CSR join is a Python loop, ~30 us a query). The process
+    group is destroyed at the end, also on a failure. Returns the
+    launches of both kernels."""
+    import math
+
+    import torch.distributed as dist
+
+    from repro_torch.core import distributed as tdist
+    from repro_torch.core.device_index import DeviceIndex
+    from repro_torch.core.minimum_repeat import enumerate_mrs, mr_id_space
+
+    t0 = time.perf_counter()
+    mesh = tdist.make_rlc_mesh(device="cuda")
+    mesh_s = time.perf_counter() - t0
+    try:
+        log(f"phase 11 mesh: {mesh} over {dist.get_backend()} in "
+            f"{mesh_s:.2f} s")
+        mm = tdist.shmap_bool_matmul(mesh)
+
+        def reach_run():
+            t0 = time.perf_counter()
+            R = tdist.distributed_all_mr_reach(g, K, mesh, matmul=mm)
+            return R, time.perf_counter() - t0
+
+        (R, reach_s), counts = counted(torch, kernels, ("bool_matmul",),
+                                       reach_run)
+        mrs = enumerate_mrs(g.num_labels, K)
+        n = g.num_vertices
+        products = sum(len(mr) - 1 for mr in mrs) + len(mrs) * max(
+            1, math.ceil(math.log2(max(n, 2))))
+        if not np.array_equal(R, reach):
+            raise AssertionError("phase 11 distributed reach differs from "
+                                 "DenseEngine.reach")
+        if counts["bool_matmul"] != products or mm.all_gathers != products + 1:
+            raise AssertionError(
+                f"phase 11 distributed reach: {counts['bool_matmul']} "
+                f"bool_matmul launches and {mm.all_gathers} all-gathers, "
+                f"{products} products expected")
+        log(f"phase 11 distributed_all_mr_reach (1 x 1 NCCL mesh): "
+            f"{reach_s:.3f} s (host clock, reach copied to the host), equal "
+            f"to DenseEngine.reach; bool_matmul launches "
+            f"{counts['bool_matmul']}, all-gathers {mm.all_gathers} "
+            f"({mm.gathered_bytes / 1e9:.3f} GB gathered) ({card})")
+
+        t0 = time.perf_counter()
+        idx, _ = tdist.distributed_build(g, K, mesh, hub_batch=HUB_BATCH)
+        build_s = time.perf_counter() - t0
+        if entry_sets(idx) != entry_sets(condensed):
+            raise AssertionError("phase 11 distributed_build entries differ "
+                                 "from phase 7's condensed index")
+        log(f"phase 11 distributed_build(hub_batch={HUB_BATCH}): "
+            f"{build_s:.3f} s (host clock, reach included), entries "
+            f"{idx.num_entries()} equal to phase 7's condensed index "
+            f"({card})")
+
+        dev = DeviceIndex.from_index(idx, g.num_labels, device="cuda")
+        qs, qt, qc = big_q
+
+        def query_run():
+            t0 = time.perf_counter()
+            got = tdist.distributed_query_batch(dev, qs, qt, qc, mesh)
+            return got, time.perf_counter() - t0
+
+        (got, query_s), qcounts = counted(torch, kernels, ("mergejoin",),
+                                          query_run)
+        counts.update(qcounts)
+        if not np.array_equal(got, reach[qc, qs, qt]):
+            raise AssertionError(
+                f"phase 11 distributed_query_batch differs from reach on "
+                f"{int((got != reach[qc, qs, qt]).sum())} of {len(qs)}")
+        sample = rng.choice(len(qs), 200_000, replace=False)
+        t0 = time.perf_counter()
+        csr = idx.freeze(mr_id_space(g.num_labels, K)).query_batch(
+            qs[sample], qt[sample], qc[sample])
+        csr_s = time.perf_counter() - t0
+        if not np.array_equal(got[sample], csr):
+            raise AssertionError("phase 11 distributed_query_batch differs "
+                                 "from the CSR join")
+        log(f"phase 11 distributed_query_batch: {len(qs)} queries in "
+            f"{query_s:.3f} s (host clock, copies and the all-gather "
+            f"included), {int(got.sum())} true, equal to reach on all and "
+            f"to the CSR join on 200,000 sampled ({csr_s:.1f} s on the "
+            f"host); merge launches {qcounts['mergejoin']} ({card})")
+    finally:
+        dist.destroy_process_group()
+    return counts
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1355,6 +1562,17 @@ def main() -> int:
                                  [a.value for a in answers], KERNELS, rng)
     log(f"phase 10 merge-join launches {sharded_counts} (not in the kernels "
         f"line)")
+
+    # -- the parallel build and the distributed dense engine, counted --- #
+    t0 = time.perf_counter()
+    par_counts = run_parallel_build(
+        torch, card, g, svc, (ref_idx, ref_stats), queries,
+        [a.value for a in answers], KERNELS)
+    dist_counts = run_distributed(torch, card, g, eng.reach, idx_c, big_q,
+                                  KERNELS, rng)
+    log(f"phase 11: {time.perf_counter() - t0:.1f} s (host clock); "
+        f"launches: parallel-built service {par_counts}, distributed "
+        f"{dist_counts} (not in the kernels line) ({card})")
 
     csrc = "src/repro_torch/kernels/csrc/"
     meta = {

@@ -14,6 +14,9 @@ Backends:
 ``numpy``     hybrid scalar / vectorized bitset waves on label CSR
 ``cuda``      hybrid with waves run by the CUDA frontier kernel
               (``device=``, default ``"cuda"``; request explicitly)
+``parallel``  hub-partitioned epoch/merge workers over a list-scheduled
+              phase DAG (``workers=N``; each worker runs the numpy
+              hybrid on a hub-sliced mirror, on the host)
 ============  ==========================================================
 
 Incremental builds of a mutated graph: :mod:`repro_torch.build.delta`
@@ -34,12 +37,15 @@ from .base import (AUTO_ORDER, BuildBackend, BuildStats, PrunedInserter,
 from .cuda_backend import CudaBackend
 from .delta import DeltaBuilder, DeltaResult, GraphDelta
 from .numpy_backend import NumpyBackend
-from .reference import PythonBackend
+from .reference import IndexBuilder, PythonBackend
+
+# multi-worker epoch/merge construction over the phase DAG
+from .parallel import ParallelBackend
 
 __all__ = [
     "AUTO_ORDER", "BuildBackend", "BuildStats", "CudaBackend",
-    "DeltaBuilder", "DeltaResult", "GraphDelta", "NumpyBackend",
-    "PrunedInserter", "PythonBackend",
+    "DeltaBuilder", "DeltaResult", "GraphDelta", "IndexBuilder",
+    "NumpyBackend", "ParallelBackend", "PrunedInserter", "PythonBackend",
     "access_schedule", "build_rlc_index", "build_rlc_index_with_stats",
     "get_backend", "list_backends", "register_backend",
 ]

@@ -19,7 +19,7 @@ from __future__ import annotations
 
 import time
 from collections import deque
-from typing import Callable, Dict, List, Set, Tuple
+from typing import Callable, Dict, List, Optional, Set, Tuple
 
 from repro_torch.core.graph import LabeledGraph
 from repro_torch.core.minimum_repeat import LabelSeq, minimum_repeat
@@ -200,3 +200,23 @@ class PythonBackend(BuildBackend):
 
 
 register_backend("python", PythonBackend)
+
+
+# --------------------------------------------------------------------- #
+# Back-compat surface (the pre-refactor ``core.index_builder`` API)
+# --------------------------------------------------------------------- #
+class IndexBuilder:
+    """Drop-in for the historical ``core.index_builder.IndexBuilder``."""
+
+    def __init__(self, graph: LabeledGraph, k: int,
+                 use_pr1: bool = True, use_pr2: bool = True,
+                 use_pr3: bool = True):
+        self.g = graph
+        self.k = int(k)
+        self._backend = PythonBackend(use_pr1, use_pr2, use_pr3)
+        self.stats = BuildStats(backend=self._backend.name)
+        self.index: Optional[RLCIndex] = None
+
+    def build(self) -> RLCIndex:
+        self.index, self.stats = self._backend.build(self.g, self.k)
+        return self.index

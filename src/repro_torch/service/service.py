@@ -43,7 +43,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
-from repro_torch.build import BuildStats, build_rlc_index_with_stats
+from repro_torch.build import BuildStats, get_backend
 from repro_torch.core.device_index import DeviceIndex
 from repro_torch.core.devices import resolve_device
 from repro_torch.core.graph import LabeledGraph
@@ -155,6 +155,10 @@ class RLCService:
         self.index = index
         self.config = config
         self.build_stats = build_stats   # None when the index was adopted
+        #: the build backend's ``last_build_info`` (the ``parallel``
+        #: backend's mode, DAG, epochs, makespan, executor); empty when
+        #: the backend keeps none or the index was adopted
+        self.build_info: Dict = {}
         # one telemetry context for the whole stack (passed in by build()
         # so offline build phases land in the same registry)
         self.obs = obs or Observability(
@@ -201,22 +205,29 @@ class RLCService:
         """Build (or adopt) the RLC index for ``graph`` and start serving.
         Builds go through the configured :mod:`repro_torch.build`
         backend; ``auto`` on a CUDA device, and ``cuda`` by name, run the
-        build's device waves on ``config.device``."""
+        build's device waves on ``config.device``. ``parallel`` builds on
+        the host's worker processes and then serves on
+        ``config.device``; its ``last_build_info`` lands in
+        :attr:`build_info`."""
         config = config or ServiceConfig()
         dev = _check_device(config)
         obs = Observability(enabled=config.telemetry,
                             trace_sample_rate=config.trace_sample_rate,
                             max_trace_events=config.trace_max_events)
         build_stats = None
+        build_info: Dict = {}
         if index is None:
-            backend, kw = _backend_on(config.build_backend, dev)
-            index, build_stats = build_rlc_index_with_stats(
-                graph, config.k, backend=backend,
-                observer=obs.build_observer(), **kw)
+            name, kw = _backend_on(config.build_backend, dev)
+            backend = get_backend(name, **kw).set_observer(
+                obs.build_observer())
+            index, build_stats = backend.build(graph, config.k)
+            build_info = dict(getattr(backend, "last_build_info", {}))
         elif index.k != config.k:
             raise ValueError(
                 f"index built with k={index.k} but config.k={config.k}")
-        return cls(graph, index, config, build_stats=build_stats, obs=obs)
+        svc = cls(graph, index, config, build_stats=build_stats, obs=obs)
+        svc.build_info = build_info
+        return svc
 
     # -- admission ------------------------------------------------------ #
     def parse(self, constraint: Constraint) -> PathExpression:
