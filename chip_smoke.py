@@ -77,13 +77,20 @@ points a user calls:
     all-gather a product) equal to step 7's ``reach``,
     ``distributed_build(hub_batch=8)`` equal to step 7's condensed
     index, and ``distributed_query_batch`` on step 7's 3,767,616 queries
-    (merge kernel) equal to ``reach`` and, on a sample, the CSR join.
+    (merge kernel) equal to ``reach`` and, on a sample, the CSR join;
+12. the model substrate's serving path (:func:`run_model_serving`):
+    ``qwen3-0.6b`` at full width and depth in bf16 serves 8 prompts of
+    512 tokens for 64 steps through ``ServeEngine.generate`` (prefill and
+    decode timed by CUDA events beside their bounds), held against a
+    teacher-forced ``forward``; the same in f32 must be token-exact;
+    chunked-attention prefill against dense; every assigned
+    architecture's smoke config generates on the card what its forward
+    rollout gives. Plain torch ops: no hand-written kernel runs there.
 
 Launch counts are reset to 0 right before steps 3-4, 7, 8, 9, each
-configuration of 10 and each part of 11, and read right after each; the
-``kernels`` line
-reports each kernel's count from
-the path that runs it. The merge join, the frontier wave,
+configuration of 10, each part of 11 and 12, and read right after each;
+the ``kernels`` line reports each kernel's count from the path that runs
+it. The merge join, the frontier wave,
 ``frontier_steps`` and ``bitpack_matmul`` take less time on the card
 than a launch from Python, so their kernel times are taken from a
 captured CUDA graph (:func:`graph_ms`; the time launched from Python is
@@ -1317,6 +1324,275 @@ def run_distributed(torch, card, g, reach, condensed, big_q, kernels,
     return counts
 
 
+# -- phase 12: the model substrate's serving path ---------------------- #
+SERVE_ARCH = "qwen3-0.6b"
+SERVE_B, SERVE_S0, SERVE_STEPS, SERVE_MAX_LEN = 8, 512, 64, 640
+F32_B, F32_STEPS = 2, 16
+ARGMAX_SHARE = 0.99        # bf16 decode vs teacher-forced forward, at least
+ATTN_CHUNK = 128
+CHUNK_BOUND = 1e-2         # max |dlogit|, chunked vs dense f32 prefill
+
+
+def greedy_check(torch, what, cfg, params, prompts, steps):
+    """``ServeEngine.generate`` on the card, each prefill and decode call
+    timed by CUDA events and its logits kept, then one teacher-forced
+    ``forward`` over prompt + generated tokens. Returns the figures."""
+    from repro_torch.models import forward
+    from repro_torch.serve import ServeEngine
+
+    class Recorder(ServeEngine):
+        """The engine as a user calls it; only its two step functions are
+        wrapped."""
+
+        def __init__(self, *args, **kw):
+            super().__init__(*args, **kw)
+            self.calls = []
+
+        def _timed(self, fn, *args):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*args)
+            end.record()
+            self.calls.append((start, end, out[0]))
+            return out
+
+        def prefill(self, *args):
+            return self._timed(super().prefill, *args)
+
+        def decode(self, *args):
+            return self._timed(super().decode, *args)
+
+    B, S0 = prompts.shape
+    engine = Recorder(cfg, params, SERVE_MAX_LEN, B, device="cuda")
+    engine.generate(prompts, 2)                       # warm-up
+    torch.cuda.synchronize()
+    engine.calls = []
+    t0 = time.perf_counter()
+    out = engine.generate(prompts, steps)
+    wall_s = time.perf_counter() - t0
+    ms = [s.elapsed_time(e) for s, e, _ in engine.calls]
+    step_logits = torch.cat([lg[:, -1:, :cfg.vocab_size]
+                             for _, _, lg in engine.calls], dim=1)
+    engine.calls = []
+    if out.shape != (B, steps):
+        raise AssertionError(f"phase 12 {what}: generate gave {out.shape}")
+    if not np.array_equal(step_logits.argmax(-1).cpu().numpy(), out):
+        raise AssertionError(f"phase 12 {what}: tokens are not the argmax "
+                             "of the step logits")
+    seq = torch.as_tensor(np.concatenate([prompts, out[:, :-1]], axis=1),
+                          device="cuda")
+    with torch.no_grad():
+        full, _ = forward(params, cfg, seq)
+    ref = full[:, S0 - 1:, :cfg.vocab_size].float()
+    got = step_logits.float()
+    if not (torch.isfinite(got).all() and torch.isfinite(ref).all()):
+        raise AssertionError(f"phase 12 {what}: logits not finite")
+    delta = float((got - ref).abs().max())
+    agree = got.argmax(-1) == ref.argmax(-1)
+    top2 = ref.topk(2, dim=-1).values
+    margin = top2[..., 0] - top2[..., 1]
+    unexplained = int((~agree & (margin >= 2 * delta)).sum())
+    del full, ref, got, step_logits
+    return dict(out=out, wall_s=wall_s, prefill_ms=ms[0], decode_ms=ms[1:],
+                delta=delta, share=float(agree.float().mean()),
+                disagree=int((~agree).sum()), unexplained=unexplained,
+                min_margin=float(margin.min()))
+
+
+def device_profile(torch, run):
+    """(kernel launches, device-busy ms) of ``run()`` from a
+    ``torch.profiler`` trace: the CUDA kernels it recorded, their time
+    summed (one stream, so no overlap). ``(0, None)`` when the trace holds
+    no device kernel."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not kernels:
+        return 0, None
+    return len(kernels), sum(e.time_range.elapsed_us()
+                             for e in kernels) / 1e3
+
+
+def run_model_serving(torch, card) -> dict:
+    """Phase 12: the model substrate's serving path on the card.
+
+    ``qwen3-0.6b`` at full width and depth in bf16 (a seeded
+    ``torch.Generator`` on ``cuda:0``) serves B = 8 prompts of 512 tokens
+    for 64 greedy steps through ``ServeEngine.generate``; each decode
+    step's logits are held against a teacher-forced ``forward`` (argmax
+    agreement at least 99 %, every disagreement where the forward's
+    top-1/top-2 margin is below twice the max |dlogit|). The same in f32
+    (TF32 off) at B = 2 and 16 steps must be token-exact; chunked
+    attention (``attn_chunk=128``) prefill must stay within
+    ``CHUNK_BOUND`` of the dense prefill; and every assigned
+    architecture's smoke config must generate on the card, in f32, what
+    its own forward rollout gives. Raises on any failed check; returns
+    the figures it logs."""
+    from repro_torch.configs import ASSIGNED, get_config
+    from repro_torch.models import (count_params, decode_step, forward,
+                                    init_cache, init_model, param_bytes,
+                                    prefill)
+    from repro_torch.serve import ServeEngine
+
+    t_phase = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_config(SERVE_ARCH)
+    t0 = time.perf_counter()
+    params, _ = init_model(cfg, torch.Generator("cuda").manual_seed(SEED),
+                           device="cuda")
+    torch.cuda.synchronize()
+    n, nbytes = count_params(params), param_bytes(params)
+    if n != 596_180_992:
+        raise AssertionError(f"phase 12: {SERVE_ARCH} has {n} parameters")
+    log(f"phase 12 {SERVE_ARCH}: {cfg.num_layers} layers, d_model "
+        f"{cfg.d_model}, {cfg.num_heads} heads / {cfg.num_kv_heads} KV, "
+        f"head_dim {cfg.head_dim_}, d_ff {cfg.d_ff}, vocab "
+        f"{cfg.vocab_size} padded to {cfg.padded_vocab}, {cfg.param_dtype}"
+        f"; {n} parameters, {nbytes} bytes, init "
+        f"{time.perf_counter() - t0:.2f} s, allocated "
+        f"{torch.cuda.max_memory_allocated() - base} bytes over the phase's "
+        f"start ({base} before it)")
+
+    rng = np.random.default_rng(SEED)
+    prompts = rng.integers(0, cfg.vocab_size,
+                           (SERVE_B, SERVE_S0)).astype(np.int32)
+    r = greedy_check(torch, "bf16", cfg, params, prompts, SERVE_STEPS)
+    peak = torch.cuda.max_memory_allocated() - base
+    B, S0, K, dh, L = (SERVE_B, SERVE_S0, cfg.num_kv_heads, cfg.head_dim_,
+                       cfg.num_layers)
+    prefill_bound = 2 * n * B * S0 / TENSOR_OPS_PER_S * 1e3
+    kv = [2 * L * B * (S0 + i + 1) * K * dh * 2
+          for i in range(SERVE_STEPS - 1)]
+    decode_bound = [(nbytes + b) / HBM_BYTES_PER_S * 1e3 for b in kv]
+    dec = np.array(r["decode_ms"])
+    p50, p99 = float(np.percentile(dec, 50)), float(np.percentile(dec, 99))
+    share = float(np.median(np.array(decode_bound) / dec))
+    log(f"phase 12 generate bf16 (B={B}, S0={S0}, {SERVE_STEPS} steps, "
+        f"max_len {SERVE_MAX_LEN}): {r['wall_s']:.3f} s host clock; prefill "
+        f"{r['prefill_ms']:.3f} ms (CUDA events), bound "
+        f"{prefill_bound:.3f} ms (2 x params x B x S0 at 989 TFLOP/s), "
+        f"{prefill_bound / r['prefill_ms']:.1%} of it; decode p50 "
+        f"{p50:.3f} ms, p99 {p99:.3f} ms a step, bound "
+        f"{decode_bound[0]:.4f}-{decode_bound[-1]:.4f} ms (params + KV at "
+        f"the step's length at 3.35 TB/s), median share {share:.1%}; "
+        f"decode {B * len(dec) / dec.sum() * 1e3:.1f} tokens/s; peak "
+        f"{peak} bytes over the phase's start ({card})")
+    # where a step's time goes: kernels and device-busy time from a trace
+    toks = torch.as_tensor(prompts, device="cuda")
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        cache, _ = init_cache(cfg, B, SERVE_MAX_LEN, device="cuda")
+        n_pre, busy_pre = device_profile(
+            torch, lambda: prefill(params, cfg, toks, cache))
+        tok = toks[:, -1:]
+
+        def four_steps():
+            for i in range(4):
+                decode_step(params, cfg, cache, tok, S0 + i)
+        n_dec, busy_dec = device_profile(torch, four_steps)
+    del cache
+    if busy_pre is None or busy_dec is None:
+        log("phase 12 profile: the trace holds no device kernel; device "
+            "busy time not measured")
+    else:
+        log(f"phase 12 profile (torch.profiler, one prefill and 4 decode "
+            f"steps): prefill {n_pre} kernels, {busy_pre:.3f} ms device "
+            f"busy ({busy_pre / r['prefill_ms']:.1%} of its "
+            f"{r['prefill_ms']:.3f} ms above); a decode step "
+            f"{n_dec / 4:.0f} kernels, "
+            f"{busy_dec / 4:.3f} ms device busy, {busy_dec / 4 / p50:.1%} of "
+            f"the p50 step above (idle share {1 - busy_dec / 4 / p50:.1%}); "
+            f"the traced window took {time.perf_counter() - t0:.2f} s")
+    if r["share"] < ARGMAX_SHARE or r["unexplained"]:
+        raise AssertionError(f"phase 12 bf16: argmax agreement "
+                             f"{r['share']:.4f}, {r['unexplained']} "
+                             f"disagreements not at a small margin")
+    log(f"phase 12 check bf16: max |dlogit| decode vs teacher-forced "
+        f"forward {r['delta']:.4f}; argmax agrees at {r['share']:.2%} of "
+        f"{B * SERVE_STEPS} positions; {r['disagree']} disagreements, each "
+        f"where the forward's top-1/top-2 margin is below 2 x max |dlogit| "
+        f"({r['unexplained']} elsewhere); smallest margin "
+        f"{r['min_margin']:.4f}")
+
+    # -- f32, TF32 off: token-exact ------------------------------------ #
+    del params
+    cfg32 = cfg.replace(param_dtype="float32", compute_dtype="float32")
+    params32, _ = init_model(cfg32,
+                             torch.Generator("cuda").manual_seed(SEED),
+                             device="cuda")
+    r32 = greedy_check(torch, "f32", cfg32, params32, prompts[:F32_B],
+                       F32_STEPS)
+    if r32["share"] != 1.0:
+        raise AssertionError(f"phase 12 f32: {r32['disagree']} generated "
+                             "tokens differ from the teacher-forced argmax")
+    dec32 = np.array(r32["decode_ms"])
+    log(f"phase 12 check f32 (TF32 off, B={F32_B}, {F32_STEPS} steps): "
+        f"every token equals the teacher-forced argmax; max |dlogit| "
+        f"{r32['delta']:.6f}, smallest margin {r32['min_margin']:.4f}; "
+        f"prefill {r32['prefill_ms']:.3f} ms, decode p50 "
+        f"{np.percentile(dec32, 50):.3f} ms a step")
+
+    # -- chunked attention prefill against dense ------------------------ #
+    toks = torch.as_tensor(prompts[:F32_B], device="cuda")
+    with torch.no_grad():
+        outs = []
+        for c in (cfg32, cfg32.replace(attn_chunk=ATTN_CHUNK)):
+            cache, _ = init_cache(c, F32_B, SERVE_MAX_LEN, device="cuda")
+            outs.append(prefill(params32, c, toks, cache)[0].float())
+            del cache
+    dchunk = float((outs[0] - outs[1]).abs().max())
+    if not dchunk <= CHUNK_BOUND:
+        raise AssertionError(f"phase 12 chunked prefill: max |dlogit| "
+                             f"{dchunk} over {CHUNK_BOUND}")
+    log(f"phase 12 chunked attention (attn_chunk={ATTN_CHUNK}, cache "
+        f"{SERVE_MAX_LEN}, f32, B={F32_B}, S0={S0}): max |dlogit| vs dense "
+        f"prefill {dchunk:.6f} (bound {CHUNK_BOUND}; logits up to "
+        f"{float(outs[0][..., :cfg.vocab_size].abs().max()):.1f})")
+    del params32, outs
+
+    # -- every block kind: the smoke configs on the card ---------------- #
+    smoke_ms = {}
+    for arch in ASSIGNED:
+        c = get_config(arch + "-smoke")
+        t0 = time.perf_counter()
+        p, _ = init_model(c, torch.Generator("cuda").manual_seed(SEED),
+                          device="cuda")
+        toks = rng.integers(0, c.vocab_size, (2, 8)).astype(np.int32)
+        fe = (rng.normal(size=(2, c.frontend_len, c.frontend_dim)).astype(
+            np.float32) if c.frontend != "none" else None)
+        n_prefix = (c.frontend_len if c.frontend != "none"
+                    and not c.encoder_layers else 0)
+        got = ServeEngine(c, p, 8 + n_prefix + 6, 2,
+                          device="cuda").generate(toks, 6, fe)
+        seq = torch.as_tensor(toks, device="cuda").long()
+        tfe = None if fe is None else torch.as_tensor(fe, device="cuda")
+        with torch.no_grad():
+            for _ in range(6):
+                logits, _ = forward(p, c, seq, tfe)
+                seq = torch.cat([seq, logits[:, -1:, :c.vocab_size].argmax(
+                    -1)], dim=1)
+        if not np.array_equal(got, seq[:, 8:].cpu().numpy()):
+            raise AssertionError(f"phase 12 {c.name}: generate differs from "
+                                 "its forward rollout")
+        smoke_ms[c.name] = (time.perf_counter() - t0) * 1e3
+    log(f"phase 12 smoke configs (f32, B=2, S0=8, 6 steps) each equal to "
+        f"its forward rollout on the card; ms each with init and rollout: "
+        + ", ".join(f"{k} {v:.0f}" for k, v in smoke_ms.items()))
+    wall = time.perf_counter() - t_phase
+    log(f"phase 12: {wall:.1f} s (host clock) ({card})")
+    return dict(prefill_ms=r["prefill_ms"], decode_p50_ms=p50,
+                decode_p99_ms=p99, peak_bytes=peak, wall_s=wall)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1573,6 +1849,15 @@ def main() -> int:
     log(f"phase 11: {time.perf_counter() - t0:.1f} s (host clock); "
         f"launches: parallel-built service {par_counts}, distributed "
         f"{dist_counts} (not in the kernels line) ({card})")
+
+    # -- the model substrate's serving path ------------------------------ #
+    for kern in KERNELS.values():
+        kern.launches = 0
+    run_model_serving(torch, card)
+    torch.cuda.synchronize()
+    log(f"phase 12 launches of the seven kernels: "
+        f"{sum(k.launches for k in KERNELS.values())} (the model path has "
+        f"no hand-written kernel: plain torch ops)")
 
     csrc = "src/repro_torch/kernels/csrc/"
     meta = {

@@ -4,5 +4,7 @@ Mirrors the module tree of the JAX package ``repro``, which stays the
 reference: the same graphs, builds and queries give the same entries,
 counters and answers. Device state lives in torch tensors; the two
 kernels of the main path are hand-written CUDA for Hopper
-(:mod:`repro_torch.kernels`).
+(:mod:`repro_torch.kernels`). Beside the index it carries ``repro``'s
+model substrate for serving (:mod:`repro_torch.configs`,
+:mod:`repro_torch.models`, :mod:`repro_torch.serve`), plain torch ops.
 """

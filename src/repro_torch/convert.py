@@ -7,18 +7,27 @@ entry maps) and get the port's object holding the same entries. Tests use
 this to put the *same* index behind both packages' device layouts and
 services, and the *same* dense reachability stack behind both packages'
 condensed builds.
+
+For the model substrate, :func:`lm_params_from_jax` takes ``repro``'s
+parameter tree (as numpy arrays) and gives the port's, so both packages
+compute with the same weights.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Set
+from typing import Any, Dict, List, Set
 
 import numpy as np
+import torch
 
+from repro_torch.configs.base import ArchConfig
 from repro_torch.core.dense import DenseEngine
+from repro_torch.core.devices import resolve_device
 from repro_torch.core.graph import LabeledGraph
 from repro_torch.core.minimum_repeat import (LabelSeq, enumerate_mrs,
                                              mr_id_space)
 from repro_torch.core.rlc_index import FrozenRLCIndex, RLCIndex
+from repro_torch.models import init_model
+from repro_torch.models.builder import tree_leaves
 
 
 def frozen_from_arrays(num_vertices: int, k: int, aid, out_indptr,
@@ -68,3 +77,41 @@ def dense_engine_from_arrays(graph: LabeledGraph, k: int, reach
                          f"{reach.shape}")
     return DenseEngine(graph, int(k), mrs,
                        mr_id_space(graph.num_labels, int(k)), reach)
+
+
+def _leaf_tensor(arr, device: torch.device) -> torch.Tensor:
+    """One leaf, bit for bit and in its own dtype. numpy has no bfloat16:
+    such leaves arrive as ``ml_dtypes.bfloat16`` and cross as uint16."""
+    arr = np.ascontiguousarray(arr)
+    if arr.dtype.name == "bfloat16":
+        t = torch.from_numpy(arr.view(np.uint16).copy()).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(arr.copy())
+    return t.to(device)
+
+
+def lm_params_from_jax(tree: Any, cfg: ArchConfig, device="cuda") -> Dict:
+    """The port's parameter tree for ``cfg`` holding ``repro``'s values.
+
+    ``tree`` is ``repro.models.init_model``'s params with numpy leaves
+    (``jax.tree.map(np.asarray, params)``). Its paths and shapes must be
+    the port's (``init_model(cfg, abstract=True)``), else ``ValueError``;
+    each leaf keeps its dtype."""
+    want = dict(tree_leaves(init_model(cfg, abstract=True)[0]))
+    got = dict(tree_leaves(tree))
+    if set(got) != set(want):
+        fmt = lambda ps: sorted("/".join(p) for p in ps)  # noqa: E731
+        raise ValueError(f"tree paths differ: missing "
+                         f"{fmt(set(want) - set(got))}, extra "
+                         f"{fmt(set(got) - set(want))}")
+    dev = resolve_device(device)
+    out: Dict = {}
+    for path, arr in got.items():
+        if tuple(np.shape(arr)) != tuple(want[path].shape):
+            raise ValueError(f"{'/'.join(path)}: shape {np.shape(arr)}, "
+                             f"the port has {tuple(want[path].shape)}")
+        d = out
+        for key in path[:-1]:
+            d = d.setdefault(key, {})
+        d[path[-1]] = _leaf_tensor(arr, dev)
+    return out
