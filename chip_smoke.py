@@ -85,10 +85,20 @@ points a user calls:
     teacher-forced ``forward``; the same in f32 must be token-exact;
     chunked-attention prefill against dense; every assigned
     architecture's smoke config generates on the card what its forward
-    rollout gives. Plain torch ops: no hand-written kernel runs there.
+    rollout gives. Plain torch ops: no hand-written kernel runs there;
+13. the model substrate's training path (:func:`run_model_training`):
+    ``qwen3-0.6b`` at full width and depth in bf16 trains 20 steps of
+    8 x 512 tokens through ``launch.train.run`` (finite, falling loss;
+    steps timed by CUDA events beside 6 x params x tokens at 989 TFLOP/s;
+    a profiler window for the busy share; peak memory); its checkpoint
+    restores onto the card bit-identical; a 2-layer f32 cut at full
+    width: a step on the card equals the host CPU's, microbatches 4
+    equal 1; the restart drill (two injected failures, deterministic
+    algorithms) ends bit-identical to the uninterrupted run. Plain torch
+    ops and autograd: no hand-written kernel.
 
 Launch counts are reset to 0 right before steps 3-4, 7, 8, 9, each
-configuration of 10, each part of 11 and 12, and read right after each;
+configuration of 10, each part of 11, 12 and 13, and read right after each;
 the ``kernels`` line reports each kernel's count from the path that runs
 it. The merge join, the frontier wave,
 ``frontier_steps`` and ``bitpack_matmul`` take less time on the card
@@ -104,6 +114,7 @@ from __future__ import annotations
 
 import ctypes
 import json
+import os
 import re
 import subprocess
 import sys
@@ -121,6 +132,8 @@ HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory rate
 CUDA_CORE_OPS_PER_S = 67e12  # H100 SXM 32-bit rate outside tensor cores
 TENSOR_OPS_PER_S = 989e12    # H100 SXM dense bf16 tensor-core rate
 HUB_BATCH = 8                # distributed_build's default in the reference
+# deterministic cuBLAS for phase 13's restart drill; read when CUDA starts
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 
 def log(*args) -> None:
@@ -1400,11 +1413,12 @@ def greedy_check(torch, what, cfg, params, prompts, steps):
                 min_margin=float(margin.min()))
 
 
-def device_profile(torch, run):
+def device_profile(torch, run, top: int = 0):
     """(kernel launches, device-busy ms) of ``run()`` from a
     ``torch.profiler`` trace: the CUDA kernels it recorded, their time
     summed (one stream, so no overlap). ``(0, None)`` when the trace holds
-    no device kernel."""
+    no device kernel. With ``top``, a third item: the ``top`` kernel names
+    by summed device ms, as (name, ms, count)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -1413,10 +1427,16 @@ def device_profile(torch, run):
         run()
         torch.cuda.synchronize()
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    if not kernels:
-        return 0, None
-    return len(kernels), sum(e.time_range.elapsed_us()
-                             for e in kernels) / 1e3
+    busy = (sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+            if kernels else None)
+    if not top:
+        return len(kernels), busy
+    by_name = {}
+    for e in kernels:
+        ms, count = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, count + 1)
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]
+    return len(kernels), busy, [(k, ms, c) for k, (ms, c) in ranked]
 
 
 def run_model_serving(torch, card) -> dict:
@@ -1591,6 +1611,303 @@ def run_model_serving(torch, card) -> dict:
     log(f"phase 12: {wall:.1f} s (host clock) ({card})")
     return dict(prefill_ms=r["prefill_ms"], decode_p50_ms=p50,
                 decode_p99_ms=p99, peak_bytes=peak, wall_s=wall)
+
+
+# -- phase 13: the model substrate's training path --------------------- #
+TRAIN_ARCH = "qwen3-0.6b"
+TRAIN_B, TRAIN_S, TRAIN_STEPS = 8, 512, 20
+CUT_LAYERS = 2                   # the f32 checks' cut of TRAIN_ARCH
+CUT_B, CUT_S, MB_B = 2, 128, 8
+CUT_LR, CUT_EPS = 1e-2, 1e-3     # see run_model_training
+CUT_RTOL, CUT_ATOL = 1e-5, 1e-6  # card step vs host step, params
+MB_RTOL, MB_ATOL = 2e-4, 2e-5    # microbatches 4 vs 1 (the reference's)
+DRILL_ARCH = "qwen3-0.6b-smoke"
+
+
+def _leaves(state):
+    from repro_torch.models.builder import tree_flatten
+    return list(tree_flatten(state))
+
+
+def _copy_state(state, device):
+    """A copy of a train state on ``device``."""
+    from repro_torch.models.builder import tree_unflatten
+    return tree_unflatten(state, [x.detach().to(device, copy=True)
+                                  for _, x in _leaves(state)])
+
+
+def _param_diff(torch, a, b, what=None, rtol=0.0, atol=0.0) -> float:
+    """Largest |a - b| over two train states' parameters; with ``what``,
+    raises unless every leaf is within ``rtol`` / ``atol``."""
+    from repro_torch.models.builder import tree_leaves
+    want = dict(tree_leaves(b.params))
+    worst = 0.0
+    for path, x in tree_leaves(a.params):
+        x, y = x.detach().cpu(), want[path].detach().cpu()
+        d = float((x.float() - y.float()).abs().max())
+        worst = max(worst, d)
+        if what and not torch.allclose(x, y, rtol=rtol, atol=atol):
+            raise AssertionError(f"phase 13 {what}: {'/'.join(path)} "
+                                 f"differs by up to {d} (rtol {rtol}, "
+                                 f"atol {atol})")
+    return worst
+
+
+def run_model_training(torch, card) -> dict:
+    """Phase 13: the model substrate's training path on the card.
+
+    ``qwen3-0.6b`` at full width and depth in bf16 trains for 20 steps
+    at B = 8, S = 512 through ``launch.train.run`` (``remat="full"``,
+    bf16 moments and gradients, a seeded init on the card): every loss and
+    grad norm finite and the last loss below the first; each step timed
+    by CUDA events (the factory ``run`` calls is wrapped), beside its
+    bound 6 x params x tokens at 989 TFLOP/s; two more steps under a
+    ``torch.profiler`` window give the device-busy share. A
+    ``CheckpointManager.save_async`` of the trained state (free space
+    checked first) restores onto the card bit-identical. Then a 2-layer
+    cut at full width and vocabulary in f32 (TF32 off): one
+    ``make_train_step`` step on the card equals the same step on the host
+    CPU (the comparison's host leg, named so), and ``microbatches=4``
+    equals 1 on the card; those steps use lr 1e-2 and eps 1e-3, so that
+    an update is a smooth function of its gradient (with eps 1e-8 a
+    gradient near 1e-8 maps to any update in (-lr, lr)). Last, the
+    restart drill: ``run`` on the smoke config with failures injected at
+    steps 5 and 9 under ``torch.use_deterministic_algorithms(True)``
+    must restart twice and end bit-identical to the uninterrupted run.
+    Raises on any failed check; returns the figures it logs."""
+    import shutil
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import dense_pattern
+    from repro_torch.data import DataConfig, SyntheticLMData
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import count_params
+    from repro_torch.train import OptConfig, make_train_step
+    from repro_torch.train.train_loop import init_train_state
+
+    t_phase = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_config(TRAIN_ARCH)
+
+    # -- full width, bf16, through launch.train.run, each step timed ---- #
+    calls = []
+    factory = launch_train.make_train_step
+
+    def timed_factory(*args, **kw):
+        step = factory(*args, **kw)
+
+        def timed(state, batch):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = step(state, batch)
+            end.record()
+            calls.append((start, end, out[1]["grad_norm"]))
+            return out
+        return timed
+
+    launch_train.make_train_step = timed_factory
+    try:
+        t0 = time.perf_counter()
+        state, history, _ = launch_train.run(
+            TRAIN_ARCH, TRAIN_STEPS, TRAIN_B, TRAIN_S, log_every=10,
+            device="cuda")
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+    finally:
+        launch_train.make_train_step = factory
+    peak = torch.cuda.max_memory_allocated() - base
+    n = count_params(state.params)
+    if n != 596_180_992:
+        raise AssertionError(f"phase 13: {TRAIN_ARCH} has {n} parameters")
+    ms = [s.elapsed_time(e) for s, e, _ in calls]
+    gnorms = [float(g) for _, _, g in calls]
+    if len(history) != TRAIN_STEPS or len(ms) != TRAIN_STEPS:
+        raise AssertionError(f"phase 13: {len(history)} losses, {len(ms)} "
+                             f"timed steps")
+    if not (np.isfinite(history).all() and np.isfinite(gnorms).all()):
+        raise AssertionError(f"phase 13: losses {history}, grad norms "
+                             f"{gnorms}")
+    if not history[-1] < history[0]:
+        raise AssertionError(f"phase 13: loss did not fall: {history}")
+    tokens = TRAIN_B * TRAIN_S
+    steady = np.array(ms[1:])
+    p50, p99 = float(np.percentile(steady, 50)), float(
+        np.percentile(steady, 99))
+    bound = 6 * n * tokens / TENSOR_OPS_PER_S * 1e3
+    log(f"phase 13 {TRAIN_ARCH} train bf16 (launch.train.run, B={TRAIN_B}, "
+        f"S={TRAIN_S}, {TRAIN_STEPS} steps, remat {cfg.remat}, bf16 "
+        f"moments and grads): {run_s:.2f} s host clock with init; loss "
+        f"{history[0]:.4f} -> {history[-1]:.4f}, grad norm "
+        f"{gnorms[0]:.3f} -> {gnorms[-1]:.3f}; step 1 {ms[0]:.3f} ms, "
+        f"steps 2-{TRAIN_STEPS} p50 {p50:.3f} ms, p99 {p99:.3f} ms (CUDA "
+        f"events), {tokens / p50 * 1e3:.0f} tokens/s; bound {bound:.3f} ms "
+        f"(6 x {n} params x {tokens} tokens at 989 TFLOP/s), "
+        f"{bound / p50:.1%} of it; peak {peak} bytes over the phase's start "
+        f"({card})")
+    log(f"phase 13 losses: {' '.join(f'{x:.4f}' for x in history)}")
+
+    # two more steps under the profiler: kernels and device-busy time
+    low = "bfloat16"
+    oc = OptConfig(lr=3e-4, warmup_steps=max(TRAIN_STEPS // 20, 5),
+                   total_steps=TRAIN_STEPS, m_dtype=low, v_dtype=low,
+                   grad_dtype=low)
+    data = SyntheticLMData(cfg, DataConfig(TRAIN_S, TRAIN_B))
+    step = make_train_step(cfg, oc)
+    batches = [{k: torch.as_tensor(v, device="cuda") for k, v in
+                data.batch_at(TRAIN_STEPS + i).items()} for i in range(2)]
+
+    def two_steps():
+        for b in batches:
+            step(state, b)
+    t0 = time.perf_counter()
+    n_k, busy, ranked = device_profile(torch, two_steps, top=8)
+    if busy is None:
+        log("phase 13 profile: the trace holds no device kernel; device "
+            "busy time not measured")
+    else:
+        log(f"phase 13 profile (torch.profiler, 2 steps): {n_k / 2:.0f} "
+            f"kernels a step, {busy / 2:.3f} ms device busy a step, "
+            f"{busy / 2 / p50:.1%} of the p50 step above (idle share "
+            f"{1 - busy / 2 / p50:.1%}); the traced window took "
+            f"{time.perf_counter() - t0:.2f} s")
+        for name, ms, count in ranked:
+            log(f"  phase 13 kernel {ms / 2:8.3f} ms a step "
+                f"({ms / busy:.1%} of busy), {count / 2:.0f} launches: "
+                f"{name[:110]}")
+
+    # -- the full-width checkpoint, restored onto the card ------------- #
+    root = Path(__file__).resolve().parent / ".phase13_ckpt"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir()
+    try:
+        leaves = _leaves(state)
+        nbytes = sum(x.numel() * x.element_size() for _, x in leaves)
+        free = shutil.disk_usage(root).free
+        if free < 2 * nbytes:
+            raise AssertionError(f"phase 13 checkpoint: {free} bytes free "
+                                 f"under {root}, the state takes {nbytes}")
+        mgr = CheckpointManager(str(root / "full"))
+        at = int(state.step)
+        t0 = time.perf_counter()
+        mgr.save_async(at, state, extra={"step": at})
+        snap_s = time.perf_counter() - t0
+        mgr.wait()
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        got_step, restored, extra = mgr.restore_latest(state)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        if got_step != at or extra != {"step": at}:
+            raise AssertionError(f"phase 13 checkpoint: restored step "
+                                 f"{got_step}, extra {extra}")
+        for (path, a), (_, b) in zip(leaves, _leaves(restored)):
+            if not (b.is_cuda and a.dtype == b.dtype and torch.equal(a, b)):
+                raise AssertionError(f"phase 13 checkpoint: {path} differs "
+                                     f"after restore")
+        log(f"phase 13 checkpoint of the trained state ({len(leaves)} "
+            f"leaves, {nbytes} bytes, step {at}): save_async returned in "
+            f"{snap_s:.2f} s (host copy), written in {save_s:.2f} s, "
+            f"restore_latest onto the card {restore_s:.2f} s, every leaf "
+            f"bit-identical ({free} bytes were free)")
+        del restored, leaves
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    del state, batches, step
+    torch.cuda.empty_cache()
+
+    # -- the f32 cut at full width: card step = host step; microbatches - #
+    cut = cfg.replace(param_dtype="float32", compute_dtype="float32",
+                      num_layers=CUT_LAYERS,
+                      block_pattern=dense_pattern(CUT_LAYERS))
+    oc32 = OptConfig(lr=CUT_LR, warmup_steps=0, eps=CUT_EPS,
+                     m_dtype="float32", v_dtype="float32",
+                     grad_dtype="float32")
+    init, _ = init_train_state(cut, oc32,
+                               torch.Generator("cuda").manual_seed(SEED),
+                               device="cuda")
+    host = _copy_state(init, "cpu")
+    card_state = _copy_state(init, "cuda")
+    batch = SyntheticLMData(cut, DataConfig(CUT_S, CUT_B)).batch_at(0)
+    t0 = time.perf_counter()
+    card_state, m_card = make_train_step(cut, oc32)(card_state, batch)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    host, m_host = make_train_step(cut, oc32)(host, batch)   # host CPU leg
+    host_s = time.perf_counter() - t0
+    for key in ("loss", "grad_norm"):
+        a, b = float(m_card[key]), float(m_host[key])
+        if not abs(a - b) <= 1e-5 * abs(b):
+            raise AssertionError(f"phase 13 f32 cut: {key} on the card "
+                                 f"{a}, on the host {b}")
+    dcard = _param_diff(torch, card_state, host, "f32 cut, card vs host",
+                        CUT_RTOL, CUT_ATOL)
+    moved = _param_diff(torch, host, init)
+    log(f"phase 13 f32 cut ({CUT_LAYERS} of {cfg.num_layers} layers, "
+        f"d_model {cut.d_model}, vocab {cut.padded_vocab}, "
+        f"{count_params(host.params)} params, TF32 off, B={CUT_B}, "
+        f"S={CUT_S}, lr {CUT_LR}, eps {CUT_EPS}): one step on the card "
+        f"({card_s:.2f} s host clock, first call) equals the step on the "
+        f"host CPU ({host_s:.2f} s): loss {float(m_card['loss']):.6f} vs "
+        f"{float(m_host['loss']):.6f}, grad norm "
+        f"{float(m_card['grad_norm']):.6f} vs "
+        f"{float(m_host['grad_norm']):.6f}, params max |d| {dcard:.3e} "
+        f"(rtol {CUT_RTOL}, atol {CUT_ATOL}; the step moved them by up to "
+        f"{moved:.3e})")
+    del host, card_state
+    mb_batch = SyntheticLMData(cut, DataConfig(CUT_S, MB_B)).batch_at(1)
+    out = {}
+    for mb in (1, 4):
+        out[mb], _ = make_train_step(cut, oc32, microbatches=mb)(
+            _copy_state(init, "cuda"), mb_batch)
+    dmb = _param_diff(torch, out[4], out[1], "microbatches 4 vs 1",
+                      MB_RTOL, MB_ATOL)
+    log(f"phase 13 microbatches=4 vs 1 on the card (the f32 cut, "
+        f"B={MB_B}): params max |d| {dmb:.3e} (rtol {MB_RTOL}, atol "
+        f"{MB_ATOL})")
+    del out, init
+    torch.cuda.empty_cache()
+
+    # -- the restart drill, deterministic ------------------------------ #
+    drill = Path(__file__).resolve().parent / ".phase13_drill"
+    shutil.rmtree(drill, ignore_errors=True)
+    kw = dict(steps=12, batch=2, seq=32, ckpt_every=4, log_every=1000,
+              device="cuda")
+    torch.use_deterministic_algorithms(True)
+    try:
+        t0 = time.perf_counter()
+        s_ref, _, rep_ref = launch_train.run(DRILL_ARCH,
+                                             ckpt_dir=str(drill / "ref"),
+                                             **kw)
+        s_inj, _, rep = launch_train.run(
+            DRILL_ARCH, ckpt_dir=str(drill / "inj"),
+            fail_at={5: RuntimeError("injected at step 5"),
+                     9: RuntimeError("injected at step 9")}, **kw)
+        drill_s = time.perf_counter() - t0
+    finally:
+        torch.use_deterministic_algorithms(False)
+        shutil.rmtree(drill, ignore_errors=True)
+    if rep.restarts != 2 or rep_ref.restarts != 0:
+        raise AssertionError(f"phase 13 drill: {rep.restarts} restarts "
+                             f"({rep_ref.restarts} uninterrupted)")
+    for (path, a), (_, b) in zip(_leaves(s_ref),
+                                 _leaves(s_inj)):
+        if not (a.is_cuda and torch.equal(a, b)):
+            raise AssertionError(f"phase 13 drill: {path} differs from "
+                                 f"the uninterrupted run")
+    log(f"phase 13 restart drill ({DRILL_ARCH}, 12 steps, checkpoints "
+        f"every 4, failures injected at steps 5 and 9, deterministic "
+        f"algorithms on): {rep.restarts} restarts, {rep.steps_run} steps "
+        f"run, every leaf bit-identical to the uninterrupted run; both "
+        f"runs {drill_s:.2f} s host clock")
+    wall = time.perf_counter() - t_phase
+    log(f"phase 13: {wall:.1f} s (host clock) ({card})")
+    return dict(step_p50_ms=p50, step_p99_ms=p99, peak_bytes=peak,
+                busy_ms=None if busy is None else busy / 2, wall_s=wall)
 
 
 def main() -> int:
@@ -1858,6 +2175,15 @@ def main() -> int:
     log(f"phase 12 launches of the seven kernels: "
         f"{sum(k.launches for k in KERNELS.values())} (the model path has "
         f"no hand-written kernel: plain torch ops)")
+
+    # -- the model substrate's training path ----------------------------- #
+    for kern in KERNELS.values():
+        kern.launches = 0
+    run_model_training(torch, card)
+    torch.cuda.synchronize()
+    log(f"phase 13 launches of the seven kernels: "
+        f"{sum(k.launches for k in KERNELS.values())} (the training path "
+        f"has no hand-written kernel: plain torch ops and autograd)")
 
     csrc = "src/repro_torch/kernels/csrc/"
     meta = {

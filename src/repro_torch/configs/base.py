@@ -82,10 +82,11 @@ class ArchConfig:
     param_dtype: str = "bfloat16"
     compute_dtype: str = "bfloat16"
     vocab_pad_multiple: int = 256
-    # ``remat`` and ``scan_stages`` are the reference's training and
-    # compile knobs (rematerialisation; scanned vs unrolled stages). The
-    # port's forward-only path loops over layers and ignores both; they
-    # stay so that a config means the same in both packages.
+    # ``remat`` is the activation rematerialisation of a training step
+    # (``models/lm.py`` applies it through ``torch.utils.checkpoint``);
+    # ``scan_stages`` is the reference's compile knob (scanned vs
+    # unrolled stages), which the port's layer loop ignores; it stays so
+    # that a config means the same in both packages.
     remat: str = "full"             # full | dots | none
     scan_stages: bool = True
 

@@ -10,7 +10,9 @@ condensed builds.
 
 For the model substrate, :func:`lm_params_from_jax` takes ``repro``'s
 parameter tree (as numpy arrays) and gives the port's, so both packages
-compute with the same weights.
+compute with the same weights; :func:`train_state_from_jax` carries a
+whole ``repro`` ``TrainState`` (params, both moments, step), so both
+start training from one state.
 """
 from __future__ import annotations
 
@@ -27,7 +29,8 @@ from repro_torch.core.minimum_repeat import (LabelSeq, enumerate_mrs,
                                              mr_id_space)
 from repro_torch.core.rlc_index import FrozenRLCIndex, RLCIndex
 from repro_torch.models import init_model
-from repro_torch.models.builder import tree_leaves
+from repro_torch.models.builder import tree_from_leaves, tree_leaves
+from repro_torch.train.train_loop import TrainState
 
 
 def frozen_from_arrays(num_vertices: int, k: int, aid, out_indptr,
@@ -80,21 +83,22 @@ def dense_engine_from_arrays(graph: LabeledGraph, k: int, reach
 
 
 def _leaf_tensor(arr, device: torch.device) -> torch.Tensor:
-    """One leaf, bit for bit and in its own dtype. numpy has no bfloat16:
-    such leaves arrive as ``ml_dtypes.bfloat16`` and cross as uint16."""
-    arr = np.ascontiguousarray(arr)
+    """One leaf (numpy or JAX), bit for bit and in its own dtype. numpy has
+    no bfloat16: such leaves arrive as ``ml_dtypes.bfloat16`` and cross
+    as uint16."""
+    arr = np.array(arr, order="C")     # a copy; keeps a 0-d leaf 0-d
     if arr.dtype.name == "bfloat16":
-        t = torch.from_numpy(arr.view(np.uint16).copy()).view(torch.bfloat16)
+        t = torch.from_numpy(arr.view(np.uint16)).view(torch.bfloat16)
     else:
-        t = torch.from_numpy(arr.copy())
+        t = torch.from_numpy(arr)
     return t.to(device)
 
 
 def lm_params_from_jax(tree: Any, cfg: ArchConfig, device="cuda") -> Dict:
     """The port's parameter tree for ``cfg`` holding ``repro``'s values.
 
-    ``tree`` is ``repro.models.init_model``'s params with numpy leaves
-    (``jax.tree.map(np.asarray, params)``). Its paths and shapes must be
+    ``tree`` is ``repro.models.init_model``'s params with numpy (or JAX)
+    leaves. Its paths and shapes must be
     the port's (``init_model(cfg, abstract=True)``), else ``ValueError``;
     each leaf keeps its dtype."""
     want = dict(tree_leaves(init_model(cfg, abstract=True)[0]))
@@ -105,13 +109,25 @@ def lm_params_from_jax(tree: Any, cfg: ArchConfig, device="cuda") -> Dict:
                          f"{fmt(set(want) - set(got))}, extra "
                          f"{fmt(set(got) - set(want))}")
     dev = resolve_device(device)
-    out: Dict = {}
     for path, arr in got.items():
         if tuple(np.shape(arr)) != tuple(want[path].shape):
             raise ValueError(f"{'/'.join(path)}: shape {np.shape(arr)}, "
                              f"the port has {tuple(want[path].shape)}")
-        d = out
-        for key in path[:-1]:
-            d = d.setdefault(key, {})
-        d[path[-1]] = _leaf_tensor(arr, dev)
-    return out
+    return tree_from_leaves((path, _leaf_tensor(arr, dev))
+                            for path, arr in got.items())
+
+
+def train_state_from_jax(state: Any, cfg: ArchConfig, device="cuda"
+                         ) -> TrainState:
+    """The port's :class:`~repro_torch.train.TrainState` holding a
+    ``repro`` ``TrainState``'s values bit for bit: its params and both
+    moments (each leaf in its own dtype, bfloat16 included) and its two
+    step counters. Leaves may be JAX or numpy arrays."""
+    dev = resolve_device(device)
+    opt = state.opt
+    return TrainState(
+        lm_params_from_jax(state.params, cfg, dev),
+        {"m": lm_params_from_jax(opt["m"], cfg, dev),
+         "v": lm_params_from_jax(opt["v"], cfg, dev),
+         "step": _leaf_tensor(opt["step"], dev)},
+        _leaf_tensor(state.step, dev))

@@ -47,8 +47,28 @@ from .rlc_index import RLCIndex
 
 __all__ = ["RowParallelMatmul", "distributed_all_mr_reach",
            "distributed_build", "distributed_plus_closure",
-           "distributed_query_batch", "make_rlc_mesh", "mesh_device",
-           "shmap_bool_matmul"]
+           "distributed_query_batch", "init_world", "make_rlc_mesh",
+           "mesh_device", "shmap_bool_matmul"]
+
+
+def init_world(device="cuda") -> bool:
+    """Start a world of one rank over a ``HashStore`` when no process
+    group is initialised — NCCL on a CUDA device (after
+    ``torch.cuda.set_device``), gloo on the CPU — and say whether it did.
+    A failed NCCL start raises; nothing carries on over gloo."""
+    if dist.is_initialized():
+        return False
+    dev = resolve_device(device)
+    store = dist.HashStore()
+    if dev.type == "cuda":
+        index = (dev.index if dev.index is not None
+                 else torch.cuda.current_device())
+        torch.cuda.set_device(index)
+        dist.init_process_group("nccl", store=store, rank=0, world_size=1,
+                                device_id=torch.device("cuda", index))
+    else:
+        dist.init_process_group("gloo", store=store, rank=0, world_size=1)
+    return True
 
 
 def make_rlc_mesh(data: Optional[int] = None, pod: int = 1,
@@ -65,18 +85,7 @@ def make_rlc_mesh(data: Optional[int] = None, pod: int = 1,
     have set its CUDA device first. Tear down with
     ``torch.distributed.destroy_process_group()``."""
     dev = resolve_device(device)
-    if not dist.is_initialized():
-        store = dist.HashStore()
-        if dev.type == "cuda":
-            index = (dev.index if dev.index is not None
-                     else torch.cuda.current_device())
-            torch.cuda.set_device(index)
-            dist.init_process_group(
-                "nccl", store=store, rank=0, world_size=1,
-                device_id=torch.device("cuda", index))
-        else:
-            dist.init_process_group("gloo", store=store, rank=0,
-                                    world_size=1)
+    init_world(dev)
     world = dist.get_world_size()
     data = data or world // pod
     if pod < 1 or data < 1 or pod * data != world:

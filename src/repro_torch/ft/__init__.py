@@ -1,5 +1,7 @@
-"""Fault tolerance (port of :mod:`repro.ft`, so far the straggler
-monitor the RPC shard cluster watches its workers with)."""
-from .elastic import StragglerMonitor
+"""Fault tolerance (port of :mod:`repro.ft`): the straggler monitor, the
+elastic mesh manager and the checkpoint/restart training loop."""
+from .elastic import (ElasticMeshManager, LoopReport, StragglerMonitor,
+                      resilient_loop)
 
-__all__ = ["StragglerMonitor"]
+__all__ = ["StragglerMonitor", "ElasticMeshManager", "LoopReport",
+           "resilient_loop"]

@@ -11,6 +11,7 @@ draws are torch's, so the values differ from the reference's.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import math
 from typing import Any, Dict, Optional, Sequence, Tuple
 
@@ -100,6 +101,68 @@ def tree_leaves(tree: PyTree):
                 yield (k,) + path, leaf
     else:
         yield (), tree
+
+
+def tree_from_leaves(pairs) -> Dict:
+    """The nested dicts whose :func:`tree_leaves` are ``pairs``."""
+    out: Dict = {}
+    for path, leaf in pairs:
+        d = out
+        for key in path[:-1]:
+            d = d.setdefault(key, {})
+        d[path[-1]] = leaf
+    return out
+
+
+def _children(tree):
+    """(key, child) pairs of a tree node, or None for a leaf: dict keys
+    sorted; list, tuple and dataclass children by index."""
+    if isinstance(tree, dict):
+        return [(str(k), tree[k]) for k in sorted(tree)]
+    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        tree = [getattr(tree, f.name) for f in dataclasses.fields(tree)]
+    if isinstance(tree, (list, tuple)):
+        return [(str(i), c) for i, c in enumerate(tree)]
+    return None
+
+
+def tree_flatten(tree: PyTree, is_leaf=None):
+    """``(path, leaf)`` pairs of a tree of dicts, lists, tuples and
+    dataclasses, in the order ``jax.tree_util.tree_flatten_with_path``
+    gives (dict keys sorted; a dataclass's fields in order); a path is a
+    tuple of strings (keys, or indices). ``None`` holds no leaf."""
+    if tree is None:
+        return
+    kids = None if is_leaf is not None and is_leaf(tree) else \
+        _children(tree)
+    if kids is None:
+        yield (), tree
+        return
+    for key, child in kids:
+        for path, leaf in tree_flatten(child, is_leaf):
+            yield (key,) + path, leaf
+
+
+def tree_unflatten(template: PyTree, leaves, is_leaf=None) -> PyTree:
+    """``template``'s structure holding ``leaves`` in
+    :func:`tree_flatten` order."""
+    it = iter(leaves)
+
+    def build(t):
+        if t is None:
+            return None
+        if is_leaf is not None and is_leaf(t):
+            return next(it)
+        if isinstance(t, dict):
+            return {k: build(t[k]) for k in sorted(t)}
+        if dataclasses.is_dataclass(t) and not isinstance(t, type):
+            return dataclasses.replace(t, **{
+                f.name: build(getattr(t, f.name))
+                for f in dataclasses.fields(t)})
+        if isinstance(t, (list, tuple)):
+            return type(t)(build(c) for c in t)
+        return next(it)
+    return build(template)
 
 
 def tree_map(fn, tree: PyTree) -> PyTree:

@@ -23,6 +23,8 @@ from __future__ import annotations
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.devices import resolve_device
@@ -111,12 +113,15 @@ def init_model(cfg: ArchConfig, generator: Optional[torch.Generator] = None,
 
 class LanguageModel(torch.nn.Module):
     """A parameter tree as one module: each dict level is a submodule and
-    each leaf a frozen parameter, so ``state_dict`` keys are the tree's
-    paths joined by ``.`` (``stages.s0.attn.wq.w``). :meth:`tree` gives
-    the nested dict of those parameters, which the functions of this
-    module take."""
+    each leaf a parameter, so ``state_dict`` keys are the tree's paths
+    joined by ``.`` (``stages.s0.attn.wq.w``). :meth:`tree` gives the
+    nested dict of those parameters, which the functions of this module
+    take. The parameters are frozen for serving unless ``trainable``;
+    :mod:`repro_torch.train` takes the bare tree instead and asks
+    autograd for the gradients of its leaves."""
 
-    def __init__(self, cfg: ArchConfig, params: PyTree):
+    def __init__(self, cfg: ArchConfig, params: PyTree,
+                 trainable: bool = False):
         super().__init__()
         self.cfg = cfg
         for path, leaf in tree_leaves(params):
@@ -126,7 +131,7 @@ class LanguageModel(torch.nn.Module):
                     mod.add_module(key, torch.nn.Module())
                 mod = getattr(mod, key)
             mod.register_parameter(
-                path[-1], torch.nn.Parameter(leaf, requires_grad=False))
+                path[-1], torch.nn.Parameter(leaf, requires_grad=trainable))
 
     def tree(self) -> PyTree:
         def walk(mod):
@@ -181,6 +186,36 @@ def _layer(tree, i: int):
     return None if tree is None else tree_map(lambda a: a[i], tree)
 
 
+# matmuls without batch dims: ``jax.checkpoint_policies.
+# dots_with_no_batch_dims_saveable`` saves these (a (B, S, d) @ (d, f)
+# product reaches autograd as ``mm``; the attention einsums as ``bmm``)
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat(cfg: ArchConfig, fn):
+    """``fn`` under the config's rematerialisation, as the reference wraps
+    a scanned layer in ``jax.checkpoint``: ``"full"`` keeps only the
+    layer's inputs and recomputes the rest in the backward, ``"dots"``
+    also keeps the outputs of matmuls without batch dims, ``"none"``
+    keeps everything. Only where autograd records; the values are the
+    same in all three."""
+    if cfg.remat == "none" or not torch.is_grad_enabled():
+        return fn
+    if cfg.remat == "full":
+        return lambda *args: checkpoint(fn, *args, use_reentrant=False)
+    if cfg.remat == "dots":
+        return lambda *args: checkpoint(
+            fn, *args, use_reentrant=False,
+            context_fn=lambda: create_selective_checkpoint_contexts(
+                _save_dots))
+    raise ValueError(f"unknown remat {cfg.remat!r}")
+
+
 def _run_stages(params, cfg: ArchConfig, x, positions,
                 cache: Optional[Dict], pos, enc_kv_tree=None):
     """Apply all stages; returns (x, aux_total)."""
@@ -201,11 +236,11 @@ def _run_stages(params, cfg: ArchConfig, x, positions,
             aux_total = aux_total + aux
             continue
         # the reference scans over the stacked layers of this stage
+        block = _remat(cfg, _block_apply)
         aux_s = torch.zeros((), dtype=f32, device=x.device)
         for i in range(n):
-            x, aux = _block_apply(kind, _layer(p_stack, i), x, cfg,
-                                  positions, _layer(stage_cache, i), pos,
-                                  _layer(enc_kv, i))
+            x, aux = block(kind, _layer(p_stack, i), x, cfg, positions,
+                           _layer(stage_cache, i), pos, _layer(enc_kv, i))
             aux_s = aux_s + aux
         aux_total = aux_total + aux_s
     return x, aux_total
@@ -226,13 +261,17 @@ def _run_encoder(params, cfg: ArchConfig, frames: torch.Tensor
     B, F, _ = x.shape
     positions = torch.arange(F, device=x.device)[None].expand(B, F)
     enc = params["encoder"]
-    for i in range(cfg.encoder_layers):
-        p_layer = _layer(enc["blocks"], i)
-        a = apply_norm(p_layer["norm1"], x, cfg)
+
+    def body(h, p_layer):
+        a = apply_norm(p_layer["norm1"], h, cfg)
         out, _ = apply_gqa(p_layer["attn"], a, cfg, positions)
-        x = x + out
-        m = apply_norm(p_layer["norm2"], x, cfg)
-        x = x + apply_mlp(p_layer["mlp"], m, cfg)
+        h = h + out
+        m = apply_norm(p_layer["norm2"], h, cfg)
+        return h + apply_mlp(p_layer["mlp"], m, cfg)
+
+    body = _remat(cfg, body)
+    for i in range(cfg.encoder_layers):
+        x = body(x, _layer(enc["blocks"], i))
     return apply_norm(enc["final_norm"], x, cfg)
 
 
@@ -304,7 +343,10 @@ def forward(params, cfg: ArchConfig, tokens: torch.Tensor,
 def loss_fn(params, cfg: ArchConfig, batch: Dict
             ) -> Tuple[torch.Tensor, Dict]:
     """Next-token cross entropy (+ MoE aux). batch: tokens, labels
-    [, frontend]. The value only: training comes with the train slice."""
+    [, frontend]; labels < 0 are ignored. Differentiable: the train step
+    (:mod:`repro_torch.train`) takes ``torch.autograd.grad`` of the loss
+    over the parameter leaves; ``cfg.remat`` says which activations the
+    backward recomputes."""
     logits, aux = forward(params, cfg, batch["tokens"],
                           batch.get("frontend"))
     labels = batch["labels"].long()
