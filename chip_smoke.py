@@ -95,10 +95,27 @@ points a user calls:
     width: a step on the card equals the host CPU's, microbatches 4
     equal 1; the restart drill (two injected failures, deterministic
     algorithms) ends bit-identical to the uninterrupted run. Plain torch
-    ops and autograd: no hand-written kernel.
+    ops and autograd: no hand-written kernel;
+14. the dry run and the roofline (:func:`run_dry_run`):
+    ``python -m repro_torch.launch.dryrun`` on the pod mesh (256 ranks of
+    a ``fake`` world, meta tensors) for ``qwen3-0.6b`` x {``train_4k``,
+    ``prefill_32k``, ``decode_32k``}, ``rlc-build-64k`` and
+    ``rlc-query-1m``, each ``ok``, ``decode_32k`` traced twice with equal
+    records; phase 13's step dry-run on a 1 x 1 mesh and held against the
+    card (its flops equal ``FlopCounterMode``'s count of a real step, its
+    peak within 15 % of ``max_memory_allocated``, its roofline bound at
+    most the measured step); ``launch.train.run`` on a 1 x 1 ``data x
+    model`` mesh with its state placed as DTensors (the placed path of a
+    larger world: ``constrain``, ``local_apply``, the split lookup and
+    loss, grads in their parameters' placements): the f32 cut's placed
+    step equals its plain step, and 20 bf16 steps stay near phase 13's
+    losses;
+    the closure cell's bound at n = 6656 at most ``closure_step``'s time
+    there.
 
 Launch counts are reset to 0 right before steps 3-4, 7, 8, 9, each
-configuration of 10, each part of 11, 12 and 13, and read right after each;
+configuration of 10, each part of 11, 12, 13 and 14, and read right after
+each;
 the ``kernels`` line reports each kernel's count from the path that runs
 it. The merge join, the frontier wave,
 ``frontier_steps`` and ``bitpack_matmul`` take less time on the card
@@ -1636,6 +1653,19 @@ def _copy_state(state, device):
                                   for _, x in _leaves(state)])
 
 
+def _f32_cut(cfg):
+    """``cfg`` cut to ``CUT_LAYERS`` layers in float32, and its float32
+    optimizer (lr ``CUT_LR``, eps ``CUT_EPS``)."""
+    from repro_torch.configs.base import dense_pattern
+    from repro_torch.train import OptConfig
+    cut = cfg.replace(param_dtype="float32", compute_dtype="float32",
+                      num_layers=CUT_LAYERS,
+                      block_pattern=dense_pattern(CUT_LAYERS))
+    return cut, OptConfig(lr=CUT_LR, warmup_steps=0, eps=CUT_EPS,
+                          m_dtype="float32", v_dtype="float32",
+                          grad_dtype="float32")
+
+
 def _param_diff(torch, a, b, what=None, rtol=0.0, atol=0.0) -> float:
     """Largest |a - b| over two train states' parameters; with ``what``,
     raises unless every leaf is within ``rtol`` / ``atol``."""
@@ -1643,11 +1673,13 @@ def _param_diff(torch, a, b, what=None, rtol=0.0, atol=0.0) -> float:
     want = dict(tree_leaves(b.params))
     worst = 0.0
     for path, x in tree_leaves(a.params):
-        x, y = x.detach().cpu(), want[path].detach().cpu()
+        x, y = (t.detach() for t in (x, want[path]))
+        x, y = (getattr(t, "full_tensor", lambda t=t: t)().cpu()
+                for t in (x, y))
         d = float((x.float() - y.float()).abs().max())
         worst = max(worst, d)
         if what and not torch.allclose(x, y, rtol=rtol, atol=atol):
-            raise AssertionError(f"phase 13 {what}: {'/'.join(path)} "
+            raise AssertionError(f"{what}: {'/'.join(path)} "
                                  f"differs by up to {d} (rtol {rtol}, "
                                  f"atol {atol})")
     return worst
@@ -1678,7 +1710,6 @@ def run_model_training(torch, card) -> dict:
     import shutil
     from repro_torch.checkpoint import CheckpointManager
     from repro_torch.configs import get_config
-    from repro_torch.configs.base import dense_pattern
     from repro_torch.data import DataConfig, SyntheticLMData
     from repro_torch.launch import train as launch_train
     from repro_torch.models import count_params
@@ -1820,12 +1851,7 @@ def run_model_training(torch, card) -> dict:
     torch.cuda.empty_cache()
 
     # -- the f32 cut at full width: card step = host step; microbatches - #
-    cut = cfg.replace(param_dtype="float32", compute_dtype="float32",
-                      num_layers=CUT_LAYERS,
-                      block_pattern=dense_pattern(CUT_LAYERS))
-    oc32 = OptConfig(lr=CUT_LR, warmup_steps=0, eps=CUT_EPS,
-                     m_dtype="float32", v_dtype="float32",
-                     grad_dtype="float32")
+    cut, oc32 = _f32_cut(cfg)
     init, _ = init_train_state(cut, oc32,
                                torch.Generator("cuda").manual_seed(SEED),
                                device="cuda")
@@ -1844,7 +1870,8 @@ def run_model_training(torch, card) -> dict:
         if not abs(a - b) <= 1e-5 * abs(b):
             raise AssertionError(f"phase 13 f32 cut: {key} on the card "
                                  f"{a}, on the host {b}")
-    dcard = _param_diff(torch, card_state, host, "f32 cut, card vs host",
+    dcard = _param_diff(torch, card_state, host,
+                        "phase 13 f32 cut, card vs host",
                         CUT_RTOL, CUT_ATOL)
     moved = _param_diff(torch, host, init)
     log(f"phase 13 f32 cut ({CUT_LAYERS} of {cfg.num_layers} layers, "
@@ -1864,7 +1891,8 @@ def run_model_training(torch, card) -> dict:
     for mb in (1, 4):
         out[mb], _ = make_train_step(cut, oc32, microbatches=mb)(
             _copy_state(init, "cuda"), mb_batch)
-    dmb = _param_diff(torch, out[4], out[1], "microbatches 4 vs 1",
+    dmb = _param_diff(torch, out[4], out[1],
+                      "phase 13 microbatches 4 vs 1",
                       MB_RTOL, MB_ATOL)
     log(f"phase 13 microbatches=4 vs 1 on the card (the f32 cut, "
         f"B={MB_B}): params max |d| {dmb:.3e} (rtol {MB_RTOL}, atol "
@@ -1907,7 +1935,325 @@ def run_model_training(torch, card) -> dict:
     wall = time.perf_counter() - t_phase
     log(f"phase 13: {wall:.1f} s (host clock) ({card})")
     return dict(step_p50_ms=p50, step_p99_ms=p99, peak_bytes=peak,
-                busy_ms=None if busy is None else busy / 2, wall_s=wall)
+                busy_ms=None if busy is None else busy / 2, wall_s=wall,
+                history=history)
+
+
+# -- phase 14: the dry run and the roofline ----------------------------- #
+DRY_CELLS = (("qwen3-0.6b", "train_4k"), ("qwen3-0.6b", "prefill_32k"),
+             ("qwen3-0.6b", "decode_32k"), ("rlc-build-64k", "paper"),
+             ("rlc-query-1m", "paper"),
+             ("qwen3-0.6b", "decode_32k"))   # again: the record repeats
+PEAK_TOL = 0.15          # predicted vs measured peak bytes of one step
+LOSS_RTOL = 2e-3         # the measured (plain) run vs phase 13's losses
+# The placed bf16 run vs phase 13: the placed path runs other ops (the
+# vocabulary-split loss, DTensor's decompositions), which may round
+# differently; bf16 gradients and moments compound such differences over
+# 20 steps (6.6e-3 relative at step 20 on the H100, the first three
+# losses equal). The math itself is held to CUT_RTOL / CUT_ATOL by the
+# f32 placed step (bit-identical on the H100).
+PLACED_RTOL = 2e-2
+CLOSURE_N = 6656         # the dense engine's padded n (phase 6)
+
+
+def run_dry_run(torch, card, trained, kernels) -> dict:
+    """Phase 14: the dry run (``launch/dryrun.py``) and the roofline on
+    the card's host, held against the card.
+
+    1. ``python -m repro_torch.launch.dryrun`` traces ``qwen3-0.6b`` x
+       {``train_4k``, ``prefill_32k``, ``decode_32k``}, ``rlc-build-64k``
+       and ``rlc-query-1m`` on the pod mesh (256 ranks of a ``fake``
+       world, meta tensors), one process a cell, all started together;
+       each must end ``ok``; logs its per-device flops, peak bytes,
+       collective bytes by kind, dominant term and trace seconds.
+       ``decode_32k`` is traced twice, in processes of different hash
+       seeds, and the two records must be equal but for the trace time.
+    2. Phase 13's own step (``qwen3-0.6b``, B = 8, S = 512, bf16, its
+       remat) dry-run on a 1 x 1 mesh, then run for real through
+       ``launch.train.run`` with one step counted by
+       ``FlopCounterMode`` and its peak read by
+       ``torch.cuda.max_memory_allocated``: the dry run's flops must
+       equal the count, its peak be within 15 % of the measured one, its
+       roofline bound at most the measured step time (CUDA events, p50).
+       Then ``launch.train.run`` again on a ``data x model`` mesh of
+       1 x 1 with the state placed as DTensors (``dtensor=True``), so
+       the step takes the placed path of a larger world: first the
+       2-layer f32 cut's step, placed and plain from one state, within
+       ``CUT_RTOL`` / ``CUT_ATOL``; then phase 13's 20 bf16 steps, whose
+       losses stay within ``PLACED_RTOL`` of phase 13's (the measured
+       run's within ``LOSS_RTOL``).
+    3. The ``rlc-build-64k`` closure cell at n = 6656 on a 1 x 1 mesh:
+       its roofline bound at most the ``closure_step`` kernel's time at
+       that n on the card, bf16 and float32 (launches not counted).
+    Raises on any failed check."""
+    import shutil
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeCell
+    from repro_torch.data import DataConfig, SyntheticLMData
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import train as launch_train
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.sharding.partition import (PARAM_RULES, place_tree,
+                                                tree_shardings)
+    from repro_torch.train import make_train_step
+    from repro_torch.train.train_loop import init_train_state
+
+    t_phase = time.perf_counter()
+    root = Path(__file__).resolve().parent
+    out_dir = root / ".phase14_dryrun"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir()
+    env = dict(os.environ, PYTHONPATH=str(root / "src"))
+    try:
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             arch, "--shape", shape, "--mesh", "pod", "--microbatches", "1",
+             "--out", str(out_dir / str(i))],
+            env=dict(env, PYTHONHASHSEED=str(i)), cwd=root,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for i, (arch, shape) in enumerate(DRY_CELLS)]
+        try:
+            outs = [p.communicate(timeout=600)[0] for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        sweep_s = time.perf_counter() - t0
+        failed, records = [], {}
+        for i, ((arch, shape), p, text) in enumerate(
+                zip(DRY_CELLS, procs, outs)):
+            tag = f"{arch}__{shape}__pod"
+            path = out_dir / str(i) / f"{tag}.json"
+            rec = json.loads(path.read_text()) if path.exists() else {}
+            if p.returncode != 0 or rec.get("status") != "ok":
+                failed.append(f"{tag}: exit {p.returncode}, "
+                              f"{rec.get('error')}\n"
+                              f"{rec.get('traceback', text)[-1500:]}")
+                continue
+            rec_t = dict(rec, compile_seconds=None)
+            if tag in records:
+                if records[tag] != rec_t:
+                    failed.append(f"{tag}: a second trace gave another "
+                                  f"record:\n{records[tag]}\n{rec_t}")
+                else:
+                    log(f"phase 14 dry run {tag} traced again (hash seed "
+                        f"{i}): the same record, trace "
+                        f"{rec['compile_seconds']} s")
+                continue
+            records[tag] = rec_t
+            coll = {k: v for k, v in rec["collectives"].items()
+                    if not k.startswith("raw_")}
+            r = rec["roofline"]
+            log(f"phase 14 dry run {tag} (256 fake ranks): "
+                f"{rec['cost']['flops_per_dev']:.4e} flops/dev, "
+                f"{rec['cost']['bytes_per_dev']:.4e} bytes/dev, peak "
+                f"{rec['memory']['peak_bytes_per_dev']} bytes/dev, "
+                f"collective bytes/dev {coll}, dominant {r['dominant']} "
+                f"(compute {r['compute_s']:.4e} s, memory "
+                f"{r['memory_s']:.4e} s, collective "
+                f"{r['collective_s']:.4e} s), traced in "
+                f"{rec['compile_seconds']} s"
+                + (f", useful flops {rec['useful_flops_ratio']:.3f}"
+                   if "useful_flops_ratio" in rec else ""))
+        if failed:
+            raise AssertionError("phase 14 dry runs failed:\n"
+                                 + "\n".join(failed))
+        log(f"phase 14 dry runs: {len(DRY_CELLS)} traces of "
+            f"{len(records)} cells in {sweep_s:.1f} s (host clock, "
+            f"processes in parallel)")
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+
+    # -- phase 13's step: dry run on 1 x 1, then the card --------------- #
+    cfg = get_config(TRAIN_ARCH)
+    cell = ShapeCell("phase13", "train", TRAIN_S, TRAIN_B)
+    with dryrun.fake_world(1):
+        rec = dryrun.lower_cell(TRAIN_ARCH, cell,
+                                make_host_mesh(device="cuda"),
+                                remat=cfg.remat)
+        closure = dryrun.lower_rlc_cell("rlc-build-64k",
+                                        make_host_mesh(device="cuda"),
+                                        num_vertices=CLOSURE_N)
+    calls, measured = [], {}
+    factory = launch_train.make_train_step
+
+    def measuring_factory(*args, **kw):
+        step = factory(*args, **kw)
+
+        def wrapped(state, batch):
+            if len(calls) == 2:        # the third step: counted and peaked
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                with FlopCounterMode(display=False) as fc:
+                    out = step(state, batch)
+                torch.cuda.synchronize()
+                measured.update(flops=fc.get_total_flops(),
+                                peak=torch.cuda.max_memory_allocated())
+                calls.append(None)
+                return out
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = step(state, batch)
+            end.record()
+            calls.append((start, end))
+            return out
+        return wrapped
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    launch_train.make_train_step = measuring_factory
+    try:
+        t0 = time.perf_counter()
+        state, history, _ = launch_train.run(
+            TRAIN_ARCH, TRAIN_STEPS, TRAIN_B, TRAIN_S, log_every=1000,
+            device="cuda")
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+    finally:
+        launch_train.make_train_step = factory
+    del state
+    torch.cuda.empty_cache()
+    ms = np.array([s.elapsed_time(e) for s, e in
+                   (c for c in calls[1:] if c is not None)])
+    p50 = float(np.percentile(ms, 50))
+    want_h = np.array(trained["history"])
+    if not np.allclose(np.array(history), want_h, rtol=LOSS_RTOL, atol=0):
+        raise AssertionError(f"phase 14: the measured run's losses "
+                             f"{history} vs phase 13's {trained['history']}")
+
+    # -- the placed path on a 1 x 1 mesh: every leaf a DTensor ---------- #
+    # the f32 cut's step, placed and plain, from one state: the same math
+    cut, oc32 = _f32_cut(cfg)
+    init, axes = init_train_state(cut, oc32,
+                                  torch.Generator("cuda").manual_seed(SEED),
+                                  device="cuda")
+    batch = SyntheticLMData(cut, DataConfig(CUT_S, CUT_B)).batch_at(0)
+    plain, m_plain = make_train_step(cut, oc32)(_copy_state(init, "cuda"),
+                                                batch)
+    mesh = make_host_mesh(device="cuda")
+    try:
+        placed = place_tree(_copy_state(init, "cuda"), tree_shardings(
+            init, axes, mesh, PARAM_RULES), dtensor=True)
+        placed, m_placed = make_train_step(cut, oc32, mesh=mesh)(placed,
+                                                                 batch)
+        torch.cuda.synchronize()
+        if not all(isinstance(x, DTensor) for _, x in _leaves(placed)):
+            raise AssertionError("phase 14: the placed f32 step's state is "
+                                 "not DTensors")
+        for key in ("loss", "grad_norm"):
+            a, b = float(m_placed[key]), float(m_plain[key])
+            if not abs(a - b) <= CUT_RTOL * abs(b):
+                raise AssertionError(f"phase 14 placed f32 step: {key} "
+                                     f"{a}, plain {b}")
+        dplaced = _param_diff(torch, placed, plain,
+                              "phase 14 f32 cut, placed vs plain",
+                              CUT_RTOL, CUT_ATOL)
+    finally:
+        dist.destroy_process_group()
+    log(f"phase 14 placed f32 step on the card (the f32 cut of phase 13, "
+        f"B={CUT_B}, S={CUT_S}, every leaf a DTensor on a 1 x 1 mesh) vs "
+        f"the plain step from the same state: loss "
+        f"{float(m_placed['loss']):.6f} vs {float(m_plain['loss']):.6f}, "
+        f"grad norm {float(m_placed['grad_norm']):.6f} vs "
+        f"{float(m_plain['grad_norm']):.6f}, params max |d| "
+        f"{dplaced:.3e} (rtol {CUT_RTOL}, atol {CUT_ATOL})")
+    del init, plain, placed
+    torch.cuda.empty_cache()
+
+    # launch.train.run placed, bf16, phase 13's 20 steps
+    t0 = time.perf_counter()
+    state, placed_h, _ = launch_train.run(
+        TRAIN_ARCH, TRAIN_STEPS, TRAIN_B, TRAIN_S, log_every=1000,
+        device="cuda", dtensor=True)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    leaves = [x for _, x in _leaves(state)]
+    if not all(isinstance(x, DTensor) and x.to_local().is_cuda
+               for x in leaves):
+        raise AssertionError("phase 14: the placed run's state is not "
+                             "DTensors on the card")
+    n_leaves = len(leaves)
+    del state, leaves
+    torch.cuda.empty_cache()
+    got_h = np.array(placed_h)
+    if got_h.shape != want_h.shape or not np.allclose(
+            got_h, want_h, rtol=PLACED_RTOL, atol=0):
+        raise AssertionError(f"phase 14: placed losses {placed_h} vs phase "
+                             f"13's {trained['history']}")
+    dloss = float(np.abs(got_h / want_h - 1).max())
+    flops = rec["cost"]["flops_per_dev"]
+    if flops != measured["flops"]:
+        raise AssertionError(f"phase 14: dry-run flops {flops} vs "
+                             f"FlopCounterMode on the card "
+                             f"{measured['flops']}")
+    pred = rec["memory"]["peak_bytes_per_dev"]
+    peak = measured["peak"] - base
+    if abs(pred - peak) > PEAK_TOL * peak:
+        raise AssertionError(f"phase 14: predicted peak {pred} bytes vs "
+                             f"measured {peak} (tolerance {PEAK_TOL:.0%})")
+    r = rec["roofline"]
+    bound_ms = max(r["compute_s"], r["memory_s"], r["collective_s"]) * 1e3
+    if bound_ms > p50:
+        raise AssertionError(f"phase 14: roofline bound {bound_ms:.3f} ms "
+                             f"above the measured step {p50:.3f} ms")
+    log(f"phase 14 {TRAIN_ARCH} step (B={TRAIN_B}, S={TRAIN_S}, bf16, remat "
+        f"{cfg.remat}) on a 1 x 1 mesh: dry run {flops:.6e} flops = "
+        f"FlopCounterMode on the card {measured['flops']:.6e}; predicted "
+        f"peak {pred} bytes vs measured {peak} "
+        f"({pred / peak - 1:+.2%}; args "
+        f"{rec['memory']['argument_bytes_per_dev']}, traced "
+        f"{rec['memory']['temp_bytes_per_dev'] + rec['memory']['output_bytes_per_dev']}"
+        f"); roofline bound {bound_ms:.3f} ms ({r['dominant']}: compute "
+        f"{r['compute_s'] * 1e3:.3f} ms, memory {r['memory_s'] * 1e3:.3f} "
+        f"ms) vs measured p50 {p50:.3f} ms over {len(ms)} steps (CUDA "
+        f"events), {bound_ms / p50:.1%} of it; traced in "
+        f"{rec['compile_seconds']} s ({card})")
+    log(f"phase 14 launch.train.run on a 1 x 1 data x model mesh, "
+        f"{n_leaves} state leaves DTensors on the card (the placed "
+        f"path, bf16): {TRAIN_STEPS} losses within rtol {PLACED_RTOL} of "
+        f"phase 13's (largest relative gap {dloss:.3e}, "
+        f"{'bit-identical' if dloss == 0 else 'not bit-identical'}; "
+        f"losses {' '.join(f'{x:.4f}' for x in placed_h)}); "
+        f"{run_s:.2f} s host clock with init (the plain run above "
+        f"{plain_s:.2f} s, one step of it under FlopCounterMode)")
+
+    log(f"phase 14 launches of the seven kernels before the closure "
+        f"timing: {sum(k.launches for k in kernels.values())} (the dry run "
+        f"traces plain tensor code; the training path is plain torch ops)")
+
+    # -- the closure cell at n = 6656 against the kernel --------------- #
+    g = torch.Generator("cuda").manual_seed(SEED)
+    M = (torch.rand((CLOSURE_N, CLOSURE_N), generator=g, device="cuda")
+         < 0.01).float()
+    Mb, out = M.to(torch.bfloat16), torch.empty_like(M)
+    outb = torch.empty_like(Mb)
+    kernel_bf16 = cuda_ms(lambda: ops.closure_step(Mb, out=outb), 10)
+    kernel_f32 = cuda_ms(lambda: ops.closure_step(M, out=out), 10)
+    rc = closure["roofline"]
+    c_bound = max(rc["compute_s"], rc["memory_s"], rc["collective_s"]) * 1e3
+    if c_bound > min(kernel_bf16, kernel_f32):
+        raise AssertionError(f"phase 14: closure cell bound {c_bound:.4f} "
+                             f"ms above the kernel ({kernel_bf16:.4f} ms "
+                             f"bf16, {kernel_f32:.4f} ms f32)")
+    log(f"phase 14 rlc-build-64k closure cell at n={CLOSURE_N} on a 1 x 1 "
+        f"mesh: {closure['cost']['flops_per_dev']:.4e} flops, "
+        f"{closure['cost']['bytes_per_dev']:.4e} bytes (plain version), "
+        f"bound {c_bound:.4f} ms ({rc['dominant']}); closure_step kernel "
+        f"{kernel_bf16:.4f} ms bf16, {kernel_f32:.4f} ms f32 (CUDA events, "
+        f"not counted) ({card})")
+    del M, Mb, out, outb
+    torch.cuda.empty_cache()
+    wall = time.perf_counter() - t_phase
+    log(f"phase 14: {wall:.1f} s (host clock) ({card})")
+    return dict(step_p50_ms=p50, wall_s=wall)
 
 
 def main() -> int:
@@ -2179,11 +2525,16 @@ def main() -> int:
     # -- the model substrate's training path ----------------------------- #
     for kern in KERNELS.values():
         kern.launches = 0
-    run_model_training(torch, card)
+    trained = run_model_training(torch, card)
     torch.cuda.synchronize()
     log(f"phase 13 launches of the seven kernels: "
         f"{sum(k.launches for k in KERNELS.values())} (the training path "
         f"has no hand-written kernel: plain torch ops and autograd)")
+
+    # -- the dry run and the roofline, held against the card ------------- #
+    for kern in KERNELS.values():
+        kern.launches = 0
+    run_dry_run(torch, card, trained, KERNELS)
 
     csrc = "src/repro_torch/kernels/csrc/"
     meta = {

@@ -17,6 +17,16 @@ same header and reads such a file back through a 16-bit integer view.
 Async: ``CheckpointManager.save_async`` copies the tree to host memory
 synchronously (device -> numpy) and writes on a background thread, so
 training resumes at once.
+
+Several ranks (a ``torch.distributed`` world of more than one process):
+each rank writes its own files, ``<key>.p<rank>.npy`` — a DTensor leaf's
+local shard, a plain leaf whole — into one shared temporary directory;
+the manifest records each leaf's global shape. The step is committed at
+the manager's next ``wait()``: every rank reports whether its write
+succeeded, rank 0 writes the manifest and renames the directory, and no
+rank returns before the step is visible. A restore reads this rank's
+files and re-places each DTensor leaf as the template's; a checkpoint is
+restored on the layout (world size and placements) it was written on.
 """
 from __future__ import annotations
 
@@ -29,6 +39,8 @@ from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
 from repro_torch.models.builder import tree_flatten, tree_unflatten
 
@@ -37,23 +49,36 @@ _SEP = "__"
 _BF16_DESCR = "<V2"     # the header ml_dtypes' bfloat16 gets from numpy
 
 
-def _host(leaf) -> Tuple[np.ndarray, str]:
-    """(host copy, manifest dtype name) of one leaf; a bfloat16 leaf is
-    its bits as uint16. A copy even of a host tensor, since the train step
-    updates its state in place."""
+def _world() -> Tuple[int, int]:
+    """(this process's rank, number of processes) of the world; (0, 1)
+    without one."""
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank(), dist.get_world_size()
+    return 0, 1
+
+
+def _host(leaf) -> Tuple[np.ndarray, str, list]:
+    """(host copy, manifest dtype name, global shape) of one leaf: of a
+    DTensor, this rank's shard. A bfloat16 leaf is its bits as uint16. A
+    copy even of a host tensor, since the train step updates its state
+    in place."""
     if isinstance(leaf, torch.Tensor):
+        shape = list(leaf.shape)
         t = leaf.detach()
+        if isinstance(t, DTensor):
+            t = t.to_local()
         t = t.clone() if t.device.type == "cpu" else t.cpu()
         if t.dtype == torch.bfloat16:
-            return t.view(torch.int16).numpy().view(np.uint16), "bfloat16"
-        return t.numpy(), str(t.numpy().dtype)
+            return (t.view(torch.int16).numpy().view(np.uint16), "bfloat16",
+                    shape)
+        return t.numpy(), str(t.numpy().dtype), shape
     arr = np.array(leaf)
-    return arr, str(arr.dtype)
+    return arr, str(arr.dtype), list(arr.shape)
 
 
-def _host_snapshot(tree: PyTree) -> Dict[str, Tuple[np.ndarray, str]]:
-    """key -> (host array, dtype name) for every leaf, copied off the
-    device now."""
+def _host_snapshot(tree: PyTree) -> Dict[str, Tuple[np.ndarray, str, list]]:
+    """key -> (host array, dtype name, global shape) for every leaf,
+    copied off the device now."""
     return {_SEP.join(path): _host(leaf)
             for path, leaf in tree_flatten(tree)}
 
@@ -77,32 +102,50 @@ def _load_leaf(path: str, dtype: str) -> torch.Tensor:
     return torch.from_numpy(arr.astype(dtype))
 
 
+def _write_files(tmp: str, flat: Dict, process_index: int) -> None:
+    for key, (arr, dtype, _) in flat.items():
+        _save_npy(os.path.join(tmp, f"{key}.p{process_index}.npy"), arr,
+                  dtype)
+
+
+def _commit(directory: str, step: int, tmp: str, flat: Dict,
+            extra: Optional[Dict], num_processes: int) -> str:
+    """Write the manifest into ``tmp`` and rename it to the step's
+    directory (replacing an older one)."""
+    final = os.path.join(directory, f"step_{step:08d}")
+    manifest = {
+        "step": step,
+        "keys": sorted(flat),
+        "shapes": {k: shape for k, (_, _, shape) in flat.items()},
+        "dtypes": {k: dt for k, (_, dt, _) in flat.items()},
+        "num_processes": num_processes,
+        "extra": extra or {},
+    }
+    with open(os.path.join(tmp, "manifest.json"), "w") as f:
+        json.dump(manifest, f)
+    if os.path.exists(final):
+        shutil.rmtree(final)
+    os.rename(tmp, final)
+    return final
+
+
 def _write(directory: str, step: int, flat: Dict, extra: Optional[Dict],
            process_index: int, num_processes: int) -> str:
-    final = os.path.join(directory, f"step_{step:08d}")
+    """One process's whole step: its files and the commit."""
     os.makedirs(directory, exist_ok=True)
     tmp = tempfile.mkdtemp(dir=directory, prefix=f".tmp_step{step}_")
     try:
-        for key, (arr, dtype) in flat.items():
-            _save_npy(os.path.join(tmp, f"{key}.p{process_index}.npy"),
-                      arr, dtype)
-        manifest = {
-            "step": step,
-            "keys": sorted(flat),
-            "shapes": {k: list(a.shape) for k, (a, _) in flat.items()},
-            "dtypes": {k: dt for k, (_, dt) in flat.items()},
-            "num_processes": num_processes,
-            "extra": extra or {},
-        }
-        with open(os.path.join(tmp, "manifest.json"), "w") as f:
-            json.dump(manifest, f)
-        if os.path.exists(final):
-            shutil.rmtree(final)
-        os.rename(tmp, final)
+        _write_files(tmp, flat, process_index)
+        return _commit(directory, step, tmp, flat, extra, num_processes)
     except BaseException:
         shutil.rmtree(tmp, ignore_errors=True)
         raise
-    return final
+
+
+def _shared_tmp(directory: str, step: int) -> str:
+    """The temporary directory that every rank of a world writes one
+    step's files into (a name each rank derives alone)."""
+    return os.path.join(directory, f".tmp_step{step}_shared")
 
 
 def save_pytree(directory: str, step: int, tree: PyTree,
@@ -130,7 +173,8 @@ def restore_pytree(directory: str, step: int, template: PyTree,
                    process_index: int = 0) -> Tuple[PyTree, Dict]:
     """Restore into the structure of ``template`` (values ignored): each
     leaf a tensor of the manifest's dtype, on the template leaf's device
-    (the CPU where the template leaf is not a tensor)."""
+    (the CPU where the template leaf is not a tensor); a DTensor leaf is
+    ``process_index``'s shard, placed as the template leaf is."""
     d = os.path.join(directory, f"step_{step:08d}")
     with open(os.path.join(d, "manifest.json")) as f:
         manifest = json.load(f)
@@ -139,38 +183,85 @@ def restore_pytree(directory: str, step: int, template: PyTree,
         key = _SEP.join(path)
         t = _load_leaf(os.path.join(d, f"{key}.p{process_index}.npy"),
                        manifest["dtypes"][key])
-        leaves.append(t.to(leaf.device) if isinstance(leaf, torch.Tensor)
-                      else t)
+        if isinstance(leaf, DTensor):
+            local = leaf.to_local()
+            if t.shape != local.shape:
+                raise ValueError(
+                    f"{key}: the checkpoint holds a shard of shape "
+                    f"{tuple(t.shape)} for process {process_index}, the "
+                    f"template {tuple(local.shape)}: written on another "
+                    f"layout")
+            t = DTensor.from_local(t.to(local.device), leaf.device_mesh,
+                                   leaf.placements, run_check=False)
+        elif isinstance(leaf, torch.Tensor):
+            t = t.to(leaf.device)
+        leaves.append(t)
     return tree_unflatten(template, leaves), manifest["extra"]
 
 
 class CheckpointManager:
-    """Keeps the last ``keep`` steps; async background writes."""
+    """Keeps the last ``keep`` steps; async background writes. In a world
+    of several ranks every rank makes one and calls it alike (see the
+    module docstring)."""
 
     def __init__(self, directory: str, keep: int = 3):
         self.directory = directory
         self.keep = keep
+        self.rank, self.ranks = _world()
         self._thread: Optional[threading.Thread] = None
         self._error: Optional[BaseException] = None
+        self._pending: Optional[Tuple] = None    # written, not committed
 
     def wait(self):
-        """Join the writer; re-raise the error it met, if any."""
+        """Join the writer (and, on several ranks, commit its step);
+        re-raise the error it met, if any."""
         if self._thread is not None:
             self._thread.join()
             self._thread = None
-        if self._error is not None:
-            err, self._error = self._error, None
+        err, self._error = self._error, None
+        if self._pending is not None:
+            err = self._commit_shared(err)
+        if err is not None:
             raise err
+
+    def _commit_shared(self, err: Optional[BaseException]
+                       ) -> Optional[BaseException]:
+        """Every rank has written its files of the pending step (or
+        failed): rank 0 commits it when all succeeded. Collective."""
+        step, tmp, flat, extra = self._pending
+        self._pending = None
+        failed = _failed_ranks(err, self.ranks)
+        if not failed and self.rank == 0:
+            try:
+                _commit(self.directory, step, tmp, flat, extra, self.ranks)
+                self._gc()
+            except BaseException as e:       # told to every rank below
+                err = e
+        failed = _failed_ranks(err, self.ranks)
+        if failed and err is None:
+            err = RuntimeError(f"checkpoint step {step}: ranks {failed} "
+                               f"failed to write or commit it")
+        return err
 
     def save_async(self, step: int, tree: PyTree,
                    extra: Optional[Dict] = None):
         self.wait()
         flat = _host_snapshot(tree)
+        if self.ranks == 1:
+            def write():
+                _write(self.directory, step, flat, extra, 0, 1)
+                self._gc()
+        else:
+            tmp = _shared_tmp(self.directory, step)
+            self._pending = (step, tmp, flat, extra)
+
+            def write():
+                os.makedirs(tmp, exist_ok=True)
+                _write_files(tmp, flat, self.rank)
 
         def work():
             try:
-                _write(self.directory, step, flat, extra, 0, 1)
-                self._gc()
+                write()
             except BaseException as e:   # surfaced on the next wait()
                 self._error = e
 
@@ -178,9 +269,8 @@ class CheckpointManager:
         self._thread.start()
 
     def save(self, step: int, tree: PyTree, extra: Optional[Dict] = None):
+        self.save_async(step, tree, extra)
         self.wait()
-        save_pytree(self.directory, step, tree, extra)
-        self._gc()
 
     def _gc(self):
         for s in _complete_steps(self.directory)[:-self.keep]:
@@ -193,5 +283,13 @@ class CheckpointManager:
         step = latest_step(self.directory)
         if step is None:
             return None
-        tree, extra = restore_pytree(self.directory, step, template)
+        tree, extra = restore_pytree(self.directory, step, template,
+                                     self.rank)
         return step, tree, extra
+
+
+def _failed_ranks(err: Optional[BaseException], ranks: int) -> list:
+    """The ranks whose ``err`` is set, agreed by all ranks (collective)."""
+    flags = [None] * ranks
+    dist.all_gather_object(flags, err is not None)
+    return [r for r, f in enumerate(flags) if f]

@@ -1,2 +1,3 @@
-"""Launch drivers (port of :mod:`repro.launch`): meshes and training.
-``launch/dryrun.py`` is not ported yet (``ROADMAP.md``)."""
+"""Launch drivers (port of :mod:`repro.launch`): meshes (``mesh.py``),
+training on any world ``make_host_mesh`` accepts (``train.py``) and the
+multi-pod dry run (``dryrun.py``)."""

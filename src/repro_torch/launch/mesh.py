@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import math
 
+import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 
@@ -22,8 +23,11 @@ __all__ = ["make_host_mesh", "make_production_mesh", "make_elastic_mesh",
 
 def _make_mesh(shape, axes, device) -> DeviceMesh:
     """A mesh of ``shape`` over every rank of the world, which must have
-    exactly ``prod(shape)`` ranks (checked before any world starts)."""
-    dev = resolve_device(device)
+    exactly ``prod(shape)`` ranks (checked before any world starts). On a
+    world of the ``fake`` backend (the dry run's) a CUDA mesh needs no
+    card: nothing is allocated there."""
+    fake = dist.is_initialized() and dist.get_backend() == "fake"
+    dev = torch.device(device) if fake else resolve_device(device)
     need = math.prod(shape)
     world = dist.get_world_size() if dist.is_initialized() else 1
     if need != world:

@@ -21,7 +21,7 @@ from repro_torch.configs import get_config
 from repro_torch.core.devices import resolve_device
 from repro_torch.data import DataConfig, SyntheticLMData
 from repro_torch.ft import StragglerMonitor, resilient_loop
-from repro_torch.launch.mesh import make_host_mesh, mesh_context
+from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.sharding.partition import (PARAM_RULES, place_tree,
                                             tree_shardings)
 from repro_torch.train import OptConfig, make_train_step
@@ -32,12 +32,15 @@ def run(arch: str, steps: int, batch: int, seq: int,
         ckpt_dir: Optional[str] = None, lr: float = 3e-4,
         microbatches: int = 1, ckpt_every: int = 25,
         model_parallel: int = 1, log_every: int = 10,
-        seed: int = 0, fail_at=None, device="cuda"):
+        seed: int = 0, fail_at=None, device="cuda", dtensor: bool = False):
     """Train ``arch`` for ``steps`` steps of ``batch`` x ``seq`` tokens
     from a seeded init. Returns (state, loss history, report — None
     without ``ckpt_dir``). Moments and gradients are float32 for a
     float32 config, else bfloat16, as the reference derives them. Starts
-    (and tears down) a world of one rank when none exists."""
+    (and tears down) a world of one rank when none exists. The state is
+    placed as ``PARAM_RULES`` say: DTensors on a world of more than one
+    rank, or on one rank with ``dtensor=True`` (the placed path of a
+    larger world, on one device); plain tensors otherwise."""
     dev = resolve_device(device)
     cfg = get_config(arch)
     low = "float32" if cfg.param_dtype == "float32" else "bfloat16"
@@ -52,18 +55,18 @@ def run(arch: str, steps: int, batch: int, seq: int,
         state, state_axes = init_train_state(
             cfg, oc, torch.Generator(dev).manual_seed(seed), device=dev)
         state = place_tree(state, tree_shardings(state, state_axes, mesh,
-                                                 PARAM_RULES))
+                                                 PARAM_RULES), dtensor)
         step_fn = make_train_step(cfg, oc, microbatches=microbatches,
                                   mesh=mesh)
-        return _loop(arch, cfg, step_fn, state, data, mesh, steps,
-                     ckpt_dir, ckpt_every, log_every, fail_at, dev)
+        return _loop(arch, step_fn, state, data, steps, ckpt_dir,
+                     ckpt_every, log_every, fail_at, dev)
     finally:
         if started and dist.is_initialized():
             dist.destroy_process_group()
 
 
-def _loop(arch, cfg, step_fn, state, data, mesh, steps, ckpt_dir,
-          ckpt_every, log_every, fail_at, dev):
+def _loop(arch, step_fn, state, data, steps, ckpt_dir, ckpt_every,
+          log_every, fail_at, dev):
     monitor = StragglerMonitor()
     history = []
 
@@ -73,8 +76,7 @@ def _loop(arch, cfg, step_fn, state, data, mesh, steps, ckpt_dir,
 
     if ckpt_dir:
         def wrapped(state, b):
-            with mesh_context(mesh):
-                s, m = step_fn(state, b)
+            s, m = step_fn(state, b)
             history.append(float(m["loss"]))
             if len(history) % log_every == 0:
                 print(f"[train {arch}] step={len(history)} "
@@ -88,16 +90,15 @@ def _loop(arch, cfg, step_fn, state, data, mesh, steps, ckpt_dir,
             ckpt_every=ckpt_every, monitor=monitor, fail_at=fail_at)
         return state, history, report
 
-    with mesh_context(mesh):
-        for step in range(steps):
-            t0 = time.perf_counter()
-            state, metrics = step_fn(state, batch_at(step))
-            history.append(float(metrics["loss"]))   # waits for the step
-            monitor.record(step, time.perf_counter() - t0)
-            if (step + 1) % log_every == 0:
-                print(f"[train {arch}] step={step+1} "
-                      f"loss={history[-1]:.4f} "
-                      f"lr={float(metrics['lr']):.2e}", flush=True)
+    for step in range(steps):
+        t0 = time.perf_counter()
+        state, metrics = step_fn(state, batch_at(step))
+        history.append(float(metrics["loss"]))   # waits for the step
+        monitor.record(step, time.perf_counter() - t0)
+        if (step + 1) % log_every == 0:
+            print(f"[train {arch}] step={step+1} "
+                  f"loss={history[-1]:.4f} "
+                  f"lr={float(metrics['lr']):.2e}", flush=True)
     return state, history, None
 
 

@@ -21,8 +21,12 @@ import math
 from typing import Dict, Optional, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.sharding.partition import (local_apply, on_shards,
+                                            regroup, shard_range,
+                                            whole_pieces)
 from .builder import Builder
 from .layers import (apply_linear, apply_rope, init_linear, rms_norm_heads,
                      rope_angles)
@@ -50,18 +54,32 @@ def init_gqa(b: Builder, cfg: ArchConfig, stack: Optional[int] = None,
 
 
 def _split_heads(x, n, dh):
-    return x.reshape(*x.shape[:-1], n, dh)
+    x = whole_pieces(x, -1, n)
+    return regroup(x, *x.shape[:-1], n, dh)
 
 
 def _repeat_kv(x, G: int):
     """(B, T, K, dh) -> (B, T, K*G, dh), head h reading kv head h // G
-    (``jnp.repeat(x, G, axis=2)``)."""
-    return x.repeat_interleave(G, dim=2) if G > 1 else x
+    (``jnp.repeat(x, G, axis=2)``). On a mesh each rank repeats its own
+    kv heads: its query heads are theirs' groups."""
+    if G == 1:
+        return x
+    return on_shards(lambda t: t.repeat_interleave(G, dim=2), x)
+
+
+_HEADS = ("act_batch", None, "act_heads", None)
 
 
 def _attend_mha(q, k, v, mask):
     """Full attention (train/prefill). q/k/v: (B,S|T,H,dh), KV already
-    repeated to H heads; ``mask`` broadcasts against (B,H,S,T)."""
+    repeated to H heads; ``mask`` broadcasts against (B,H,S,T). On a mesh
+    each rank attends its batch rows and heads (``_HEADS``, the
+    reference's constraint), on local shards."""
+    return local_apply(_mha_local, (q, k, v, mask),
+                       (_HEADS, _HEADS, _HEADS, None))
+
+
+def _mha_local(q, k, v, mask):
     dh = q.shape[-1]
     scores = torch.einsum("bshd,bthd->bhst", q.to(f32), k.to(f32))
     scores = scores / math.sqrt(dh)
@@ -74,9 +92,16 @@ def _attend_mha_chunked(q, k, v, chunk: int, window: int,
     """Flash-style attention: KV streamed in chunks with an online
     softmax; peak score memory is (B, H, S, chunk) instead of
     (B, H, S, T). The reference's ``lax.scan`` over chunks is a loop here.
+    On a mesh, on local shards as :func:`_attend_mha`.
 
     Causality from position math (q_pos = q_offset + i): no (S, T) mask
     tensor exists anywhere."""
+    return local_apply(
+        lambda q, k, v: _chunked_local(q, k, v, chunk, window, q_offset),
+        (q, k, v), (_HEADS, _HEADS, _HEADS))
+
+
+def _chunked_local(q, k, v, chunk: int, window: int, q_offset: int):
     B, S, H, dh = q.shape
     T = k.shape[1]
     if T % chunk:
@@ -112,12 +137,54 @@ def _attend_mha_chunked(q, k, v, chunk: int, window: int,
 
 def _attend_grouped(q, k, v, mask):
     """Grouped decode attention: q (B,S,K,G,dh) vs the K-head cache
-    (B,T,K,dh)."""
+    (B,T,K,dh). On a mesh that splits the cache's length (``cache_seq``)
+    each rank attends its slice of positions and the slices combine by
+    their softmax statistics (:func:`_attend_grouped_split`)."""
+    if isinstance(k, DTensor):
+        return _attend_grouped_split(q, k, v, mask)
     dh = q.shape[-1]
     scores = torch.einsum("bskgd,btkd->bkgst", q.to(f32), k.to(f32))
     scores = scores / math.sqrt(dh)
     w = torch.softmax(torch.where(mask, scores, NEG), dim=-1)
     return torch.einsum("bkgst,btkd->bskgd", w.to(q.dtype), v)
+
+
+def _attend_grouped_split(q, k, v, mask):
+    """:func:`_attend_grouped` over a cache whose length is split across
+    mesh axes, as split decoding does it: each rank scores its positions,
+    the running max and the softmax denominator are all-reduced (max,
+    sum) over the axes that split the length, and each rank's weighted
+    values are all-reduced (sum). The query and the cache are batch-split
+    alike; the result is batch-split and whole elsewhere. Serving only
+    (no autograd through the collectives)."""
+    from torch.distributed import _functional_collectives as funcol
+    mesh, pl = k.device_mesh, k.placements
+    split = [d for d, p in enumerate(pl) if isinstance(p, Shard)
+             and p.dim == 1]
+    batch_pl = [p if isinstance(p, Shard) and p.dim == 0 else Replicate()
+                for p in pl]
+    kv_pl = [p if isinstance(p, Shard) and p.dim in (0, 1) else Replicate()
+             for p in pl]
+    k_l = k.redistribute(mesh, kv_pl).to_local()
+    v_l = v.redistribute(mesh, kv_pl).to_local()
+    q_l = q.redistribute(mesh, batch_pl).to_local()
+    lo, size = shard_range(k, 1)
+    m_l = mask[..., lo:lo + size] if mask.shape[-1] > 1 else mask
+
+    def reduce(t, op):
+        for d in split:
+            t = funcol.wait_tensor(funcol.all_reduce(t, op, (mesh, d)))
+        return t
+
+    dh = q_l.shape[-1]
+    scores = torch.einsum("bskgd,btkd->bkgst", q_l.to(f32), k_l.to(f32))
+    scores = torch.where(m_l, scores / math.sqrt(dh), NEG)
+    top = reduce(scores.amax(-1, keepdim=True), "max")
+    e = torch.exp(scores - top)
+    w = e / reduce(e.sum(-1, keepdim=True), "sum")
+    ctx = reduce(torch.einsum("bkgst,btkd->bskgd", w.to(q_l.dtype), v_l),
+                 "sum")
+    return DTensor.from_local(ctx, mesh, batch_pl, run_check=False)
 
 
 def _causal_mask(S, T, offset, window, device=None):
@@ -136,6 +203,30 @@ def _check_write(what: str, start: int, n: int, T: int) -> None:
     if start < 0 or start + n > T:
         raise ValueError(f"{what}: positions {start}..{start + n - 1} do "
                          f"not fit a cache of length {T}")
+
+
+def _write_cache(buf: torch.Tensor, start: int, value: torch.Tensor
+                 ) -> None:
+    """``buf[:, start:start + n] = value`` in place, ``n = value.shape[1]``.
+
+    On a DTensor whose length (dim 1, ``cache_seq``) is split over the
+    mesh, slicing that dimension would redistribute into a temporary and
+    the write would be lost. So ``value`` is redistributed to the cache's
+    placements with its length whole (an explicit collective), and each
+    rank writes the positions it owns into its local shard."""
+    n = value.shape[1]
+    if not isinstance(buf, DTensor):
+        buf[:, start:start + n] = value
+        return
+    mesh, placements = buf.device_mesh, buf.placements
+    whole = [Replicate() if isinstance(p, Shard) and p.dim == 1 else p
+             for p in placements]
+    v = value.redistribute(mesh, whole).to_local()
+    local = buf.to_local()
+    lo_own, size = shard_range(buf, 1)
+    lo, hi = max(start, lo_own), min(start + n, lo_own + size)
+    if lo < hi:
+        local[:, lo - lo_own:hi - lo_own] = v[:, lo - start:hi - start]
 
 
 def apply_gqa(p, x: torch.Tensor, cfg: ArchConfig, positions: torch.Tensor,
@@ -170,8 +261,8 @@ def apply_gqa(p, x: torch.Tensor, cfg: ArchConfig, positions: torch.Tensor,
         # prefill into a fresh cache of length T >= S
         T = cache["k"].shape[1]
         _check_write("prefill", 0, S, T)
-        cache["k"][:, :S] = k
-        cache["v"][:, :S] = v
+        _write_cache(cache["k"], 0, k)
+        _write_cache(cache["v"], 0, v)
         ctx = _full(q, _repeat_kv(cache["k"], G), _repeat_kv(cache["v"], G),
                     T)
     else:
@@ -179,16 +270,17 @@ def apply_gqa(p, x: torch.Tensor, cfg: ArchConfig, positions: torch.Tensor,
         # cache keeps K heads
         T = cache["k"].shape[1]
         _check_write("decode", pos, S, T)
-        cache["k"][:, pos:pos + S] = k
-        cache["v"][:, pos:pos + S] = v
+        _write_cache(cache["k"], pos, k)
+        _write_cache(cache["v"], pos, v)
         kpos = torch.arange(T, device=x.device)
         m = kpos <= pos
         if cfg.sliding_window:
             m &= kpos > pos - cfg.sliding_window
-        ctx = _attend_grouped(q.reshape(B, S, K, G, dh), cache["k"],
+        q = whole_pieces(q, 2, K)      # H heads regrouped as (K, G)
+        ctx = _attend_grouped(regroup(q, B, S, K, G, dh), cache["k"],
                               cache["v"], m)   # m broadcasts over (..., T)
-        ctx = ctx.reshape(B, S, H, dh)
-    out = apply_linear(p["wo"], ctx.reshape(B, S, H * dh), cfg)
+        ctx = regroup(ctx, B, S, H, dh)
+    out = apply_linear(p["wo"], regroup(ctx, B, S, H * dh), cfg)
     return out, cache
 
 
@@ -207,7 +299,7 @@ def apply_cross_attn(p, x: torch.Tensor, cfg: ArchConfig,
     mask = torch.ones((1, 1, 1, k.shape[1]), dtype=torch.bool,
                       device=x.device)
     ctx = _attend_mha(q, _repeat_kv(k, G), _repeat_kv(v, G), mask)
-    return apply_linear(p["wo"], ctx.reshape(B, S, H * dh), cfg)
+    return apply_linear(p["wo"], regroup(ctx, B, S, H * dh), cfg)
 
 
 def encoder_kv(p, enc_out: torch.Tensor, cfg: ArchConfig):
@@ -248,7 +340,7 @@ def _mla_qkv(p, x, cfg, positions):
     kl = cfg.kv_lora_rank
     cq = apply_linear(p["wq_a"], x, cfg)
     cq = rms_norm_heads(p["q_ln"], cq)
-    q = apply_linear(p["wq_b"], cq, cfg).reshape(B, S, H, dn + dr)
+    q = _split_heads(apply_linear(p["wq_b"], cq, cfg), H, dn + dr)
     q_nope, q_rope = q[..., :dn], q[..., dn:]
     kv = apply_linear(p["wkv_a"], x, cfg)
     ckv, krope = kv[..., :kl], kv[..., kl:]
@@ -257,6 +349,18 @@ def _mla_qkv(p, x, cfg, positions):
     q_rope = apply_rope(q_rope, cos, sin)
     krope = apply_rope(krope[:, :, None, :], cos, sin)[:, :, 0, :]
     return q_nope, q_rope, ckv, krope
+
+
+def _mla_local(q_nope, k_nope, v, q_rope, krope, scale):
+    """MLA's causal attention over materialised per-head K/V, on one
+    rank's batch rows and heads."""
+    S = q_nope.shape[1]
+    s_nope = torch.einsum("bshn,bthn->bhst", q_nope.to(f32), k_nope.to(f32))
+    s_rope = torch.einsum("bshr,btr->bhst", q_rope.to(f32), krope.to(f32))
+    mask = _causal_mask(S, S, 0, 0, q_nope.device)
+    scores = torch.where(mask, (s_nope + s_rope) * scale, NEG)
+    w = torch.softmax(scores, dim=-1).to(v.dtype)
+    return torch.einsum("bhst,bthv->bshv", w, v)
 
 
 def apply_mla(p, x: torch.Tensor, cfg: ArchConfig, positions: torch.Tensor,
@@ -275,8 +379,8 @@ def apply_mla(p, x: torch.Tensor, cfg: ArchConfig, positions: torch.Tensor,
         # ---- absorbed decode ----
         T = cache["ckv"].shape[1]
         _check_write("decode", pos, S, T)
-        cache["ckv"][:, pos:pos + S] = ckv
-        cache["krope"][:, pos:pos + S] = krope
+        _write_cache(cache["ckv"], pos, ckv)
+        _write_cache(cache["krope"], pos, krope)
         ckv_c, kr_c = cache["ckv"], cache["krope"]
         # q absorbed into latent space: (B,S,H,dn) x (kl,H,dn) -> (B,S,H,kl)
         q_abs = torch.einsum("bshn,khn->bshk", q_nope,
@@ -295,18 +399,15 @@ def apply_mla(p, x: torch.Tensor, cfg: ArchConfig, positions: torch.Tensor,
         # ---- train / prefill: materialise per-head K, V ----
         k_nope = torch.einsum("btk,khn->bthn", ckv, p["wk_b"].to(x.dtype))
         v = torch.einsum("btk,khv->bthv", ckv, p["wv_b"].to(x.dtype))
-        s_nope = torch.einsum("bshn,bthn->bhst", q_nope.to(f32),
-                              k_nope.to(f32))
-        s_rope = torch.einsum("bshr,btr->bhst", q_rope.to(f32),
-                              krope.to(f32))
-        mask = _causal_mask(S, S, 0, 0, x.device)
-        scores = torch.where(mask, (s_nope + s_rope) * scale, NEG)
-        w = torch.softmax(scores, dim=-1).to(x.dtype)
-        ctx = torch.einsum("bhst,bthv->bshv", w, v)
+        ctx = local_apply(
+            lambda qn, kn, v, qr, kr: _mla_local(qn, kn, v, qr, kr, scale),
+            (q_nope, k_nope, v, q_rope, krope),
+            (_HEADS, _HEADS, _HEADS, _HEADS, ("act_batch", None, None)),
+            out_like=2)
         if cache is not None:
             T = cache["ckv"].shape[1]
             _check_write("prefill", 0, S, T)
-            cache["ckv"][:, :S] = ckv
-            cache["krope"][:, :S] = krope
-    out = apply_linear(p["wo"], ctx.reshape(B, S, H * dv), cfg)
+            _write_cache(cache["ckv"], 0, ckv)
+            _write_cache(cache["krope"], 0, krope)
+    out = apply_linear(p["wo"], regroup(ctx, B, S, H * dv), cfg)
     return out, cache

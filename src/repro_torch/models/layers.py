@@ -5,8 +5,10 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.sharding.partition import constrain, shard_range
 from .builder import Builder
 
 f32 = torch.float32
@@ -135,10 +137,48 @@ def init_embeddings(b: Builder, cfg: ArchConfig):
 def embed_tokens(params, tokens: torch.Tensor, cfg: ArchConfig
                  ) -> torch.Tensor:
     # gather, then cast: the same values as casting the whole table first
-    return params["embed"][tokens].to(cfg.dtype("compute"))
+    x = _lookup(params["embed"], tokens).to(cfg.dtype("compute"))
+    return constrain(x, ("act_batch", None, None))
+
+
+def _lookup(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """``table[tokens]``.
+
+    On a DTensor table split over its rows (the vocabulary), DTensor's
+    strategy for the gather's backward (``index_put``) fails on some
+    torch versions, so each rank looks up the tokens inside its slice of
+    rows (zero elsewhere) on its local shard: a partial sum over the
+    axes that split the rows, which the caller's ``constrain`` reduces.
+    The tokens are whole on those axes; the table's gradient is a
+    partial sum on the axes that split the tokens."""
+    if not isinstance(table, DTensor):
+        return table[tokens]
+    mesh = table.device_mesh
+    row_pl = [p if isinstance(p, Shard) and p.dim == 0 else Replicate()
+              for p in table.placements]
+    table = table.redistribute(mesh, row_pl)
+    if not isinstance(tokens, DTensor):
+        tokens = DTensor.from_local(tokens, mesh, [Replicate()] * mesh.ndim,
+                                    run_check=False)
+    tok_pl = [Replicate() if isinstance(p, Shard) else q
+              for p, q in zip(row_pl, tokens.placements)]
+    tokens = tokens.redistribute(mesh, tok_pl)
+    lo, size = shard_range(table, 0)
+    grad_pl = [Partial() if isinstance(p, Replicate) and isinstance(q, Shard)
+               else p for p, q in zip(row_pl, tok_pl)]
+    idx = tokens.to_local() - lo
+    inside = (idx >= 0) & (idx < size)
+    rows = table.to_local(grad_placements=grad_pl)[idx.clamp(0, size - 1)]
+    out_pl = [Partial() if isinstance(p, Shard) else q
+              for p, q in zip(row_pl, tok_pl)]
+    return DTensor.from_local(rows * inside[..., None], mesh, out_pl,
+                              run_check=False)
 
 
 def unembed(params, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    # the sequence whole on each rank, so that the product splits over
+    # the vocabulary (on a mesh; the identity elsewhere)
+    x = constrain(x, ("act_batch", None, None))
     if cfg.tie_embeddings:
         w = params["embed"].to(x.dtype).T
     else:

@@ -23,11 +23,13 @@ from __future__ import annotations
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.devices import resolve_device
+from repro_torch.sharding.partition import constrain, shard_range
 from .attention import (apply_cross_attn, apply_gqa, apply_mla, encoder_kv,
                         init_gqa, init_mla)
 from .builder import Builder, tree_leaves, tree_map
@@ -154,6 +156,15 @@ def _apply_attn_any(p, x, cfg, positions, cache, pos):
     return apply_gqa(p["attn"], x, cfg, positions, cache, pos)
 
 
+def _whole(y):
+    """A block's output summed over the ranks that split its last
+    product (heads, ``ff``, experts, the SSM's inner width) before the
+    residual add: left a partial sum, the residual stream would stay
+    partial and every later product would run whole on every rank of
+    ``model``. The identity off a mesh."""
+    return constrain(y, ("act_batch", None, None))
+
+
 def _block_apply(kind: str, p, x, cfg: ArchConfig, positions,
                  cache: Optional[Dict], pos, enc_kv=None):
     """Returns (x_out, aux); writes ``cache`` in place."""
@@ -162,21 +173,21 @@ def _block_apply(kind: str, p, x, cfg: ArchConfig, positions,
         h = apply_norm(p["norm1"], x, cfg)
         attn_cache = cache.get("attn") if cache else None
         a, _ = _apply_attn_any(p, h, cfg, positions, attn_cache, pos)
-        x = x + a
+        x = x + _whole(a)
         if kind == "xattn":
             h = apply_norm(p["norm_x"], x, cfg)
-            x = x + apply_cross_attn(p["xattn"], h, cfg, enc_kv)
+            x = x + _whole(apply_cross_attn(p["xattn"], h, cfg, enc_kv))
         h = apply_norm(p["norm2"], x, cfg)
         if kind == "moe":
             f, aux = apply_moe(p["moe"], h, cfg)
         else:
             f, aux = apply_mlp(p["mlp"], h, cfg), zero
-        return x + f, aux
+        return x + _whole(f), aux
     if kind == "ssm":
         h = apply_norm(p["norm"], x, cfg)
         ssm_cache = cache.get("ssm") if cache else None
         s, _ = apply_mamba2(p["ssm"], h, cfg, ssm_cache, pos)
-        return x + s, zero
+        return x + _whole(s), zero
     raise ValueError(kind)
 
 
@@ -243,6 +254,7 @@ def _run_stages(params, cfg: ArchConfig, x, positions,
                            _layer(stage_cache, i), pos, _layer(enc_kv, i))
             aux_s = aux_s + aux
         aux_total = aux_total + aux_s
+        x = constrain(x, ("act_batch", "act_seq", None))
     return x, aux_total
 
 
@@ -265,9 +277,9 @@ def _run_encoder(params, cfg: ArchConfig, frames: torch.Tensor
     def body(h, p_layer):
         a = apply_norm(p_layer["norm1"], h, cfg)
         out, _ = apply_gqa(p_layer["attn"], a, cfg, positions)
-        h = h + out
+        h = h + _whole(out)
         m = apply_norm(p_layer["norm2"], h, cfg)
-        return h + apply_mlp(p_layer["mlp"], m, cfg)
+        return h + _whole(apply_mlp(p_layer["mlp"], m, cfg))
 
     body = _remat(cfg, body)
     for i in range(cfg.encoder_layers):
@@ -282,7 +294,10 @@ def _fuse_frontend(params, cfg: ArchConfig, tok_embeds: torch.Tensor,
         return tok_embeds, 0
     fe = apply_linear(params["frontend_proj"],
                       frontend.to(tok_embeds.dtype), cfg)
-    return torch.cat([fe, tok_embeds], dim=1), fe.shape[1]
+    # the fused sequence laid out as the token embeddings are
+    x = constrain(torch.cat([fe, tok_embeds], dim=1),
+                  ("act_batch", None, None))
+    return x, fe.shape[1]
 
 
 def _enc_kv_tree(params, cfg: ArchConfig, enc_out: torch.Tensor) -> Dict:
@@ -352,12 +367,59 @@ def loss_fn(params, cfg: ArchConfig, batch: Dict
     labels = batch["labels"].long()
     valid = labels >= 0
     labels = torch.clamp(labels, min=0)
-    logp = torch.log_softmax(logits.to(f32), dim=-1)
-    ll = torch.gather(logp, -1, labels[..., None])[..., 0]
+    ll = _label_logp(logits.to(f32), labels)
     denom = torch.clamp(valid.sum(), min=1)
     xent = -(ll * valid).sum() / denom
     loss = xent + aux
     return loss, {"loss": loss, "xent": xent, "aux": aux, "tokens": denom}
+
+
+def _label_logp(logits: torch.Tensor, labels: torch.Tensor
+                ) -> torch.Tensor:
+    """``log_softmax(logits)[..., labels]``.
+
+    On a DTensor split over the vocabulary, ``log_softmax`` would gather
+    the whole vocabulary onto every rank (its dimension must be whole),
+    and a ``gather`` along it has no strategy. So the log-sum-exp reduces
+    across the shards (an all-reduce of the max and of the sum), and each
+    rank picks the labels inside its slice of the vocabulary (zero
+    elsewhere), a partial sum over the ranks that split it."""
+    if not isinstance(logits, DTensor):
+        logp = torch.log_softmax(logits, dim=-1)
+        return torch.gather(logp, -1, labels[..., None])[..., 0]
+    # the reductions replicated over the vocabulary's ranks (all-reduce):
+    # split over the batch instead, the backward would move the
+    # vocabulary whole onto each rank
+    rows = ("act_batch", None)
+    m = constrain(logits.amax(-1).detach(), rows)
+    total = constrain(torch.exp(logits - m[..., None]).sum(-1), rows)
+    lse = torch.log(total) + m
+    return constrain(_pick_labels(logits, labels), rows) - lse
+
+
+def _pick_labels(logits: DTensor, labels: torch.Tensor) -> DTensor:
+    """``logits[..., labels]`` on a vocabulary split over mesh axes: each
+    rank gathers the labels in its slice, and the result is a partial sum
+    over the axes that split the vocabulary."""
+    mesh = logits.device_mesh
+    logits = logits.redistribute(mesh, [Replicate() if p.is_partial() else p
+                                        for p in logits.placements])
+    pl, vdim = logits.placements, logits.ndim - 1
+    lo, size = shard_range(logits, vdim)
+    lab_pl = [Replicate() if isinstance(p, Shard) and p.dim == vdim
+              else p for p in pl]
+    if not isinstance(labels, DTensor):
+        labels = DTensor.from_local(labels, mesh,
+                                    [Replicate()] * mesh.ndim,
+                                    run_check=False)
+    idx = labels.redistribute(mesh, lab_pl).to_local() - lo
+    inside = (idx >= 0) & (idx < size)
+    picked = torch.gather(logits.to_local(), -1,
+                          idx.clamp(0, size - 1)[..., None])[..., 0]
+    out_pl = [Partial() if isinstance(p, Shard) and p.dim == vdim else p
+              for p in pl]
+    return DTensor.from_local(picked * inside, mesh, out_pl,
+                              run_check=False)
 
 
 # ------------------------------------------------------------------ #

@@ -20,6 +20,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.sharding.partition import local_apply, per_group
 from .builder import Builder
 from .layers import apply_mlp, init_mlp, silu
 
@@ -65,60 +66,86 @@ def _topk_with_slots(gates: torch.Tensor, top_k: int, capacity: int
 
 def apply_moe(p, x: torch.Tensor, cfg: ArchConfig
               ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x: (B, S, d). Returns (out, aux_loss)."""
+    """x: (B, S, d). Returns (out, aux_loss).
+
+    On a mesh, routing and combining run per group on each rank's
+    sequences (:func:`~repro_torch.sharding.partition.per_group`: DTensor
+    has no strategy for their ``sort`` / ``scatter_`` / ``gather``); the
+    expert buffers are split over experts (``act_experts``) and groups
+    (``act_batch``) for the expert products."""
     B, S, d = x.shape
     E, k = cfg.num_experts, cfg.top_k
     G, T = B, S                                      # groups = sequences
     cap = max(4, int((T * k / E) * cfg.moe_capacity_factor))
-    dev = x.device
 
     logits = torch.einsum("gtd,de->gte", x.to(f32), p["router"].to(f32))
     gates = torch.softmax(logits, dim=-1)            # (G, T, E)
-    idx, slot, w = _topk_with_slots(gates, k, cap)   # (G, T, k) each
-    w = w / (w.sum(-1, keepdim=True) + 1e-9)         # renormalise top-k
 
-    keep = slot < cap                                # (G, T, k)
-    # scatter token rows into (G, E*cap) dispatch buffers; dropped routes
-    # land in the overflow row E*cap
-    flat_slot = torch.where(keep, idx * cap + slot, E * cap)
-    token_of_slot = torch.full((G, E * cap + 1), T, dtype=torch.int64,
-                               device=dev)
-    src = torch.arange(T, device=dev)[:, None].expand(T, k).reshape(1, -1)
-    token_of_slot.scatter_(1, flat_slot.reshape(G, -1),
-                           src.expand(G, -1))
-    token_of_slot = token_of_slot[:, :E * cap]       # (G, E*cap)
-    # gather token activations into expert buffers (pad row T = zeros)
-    xg_pad = torch.cat([x, x.new_zeros((G, 1, d))], dim=1)
-    x_e = torch.gather(xg_pad, 1,
-                       token_of_slot[:, :, None].expand(-1, -1, d))
-    x_e = x_e.reshape(G, E, cap, d)
+    def dispatch(gates, x):
+        idx, slot, w = _topk_with_slots(gates, k, cap)   # (G, T, k) each
+        w = w / (w.sum(-1, keepdim=True) + 1e-9)         # renormalise
+        keep = slot < cap                                # (G, T, k)
+        Gl, dev = x.shape[0], x.device
+        # scatter token rows into (G, E*cap) dispatch buffers; dropped
+        # routes land in the overflow row E*cap
+        flat_slot = torch.where(keep, idx * cap + slot, E * cap)
+        token_of_slot = torch.full((Gl, E * cap + 1), T, dtype=torch.int64,
+                                   device=dev)
+        src = torch.arange(T, device=dev)[:, None].expand(T, k)
+        token_of_slot.scatter_(1, flat_slot.reshape(Gl, -1),
+                               src.reshape(1, -1).expand(Gl, -1))
+        token_of_slot = token_of_slot[:, :E * cap]       # (G, E*cap)
+        # gather token activations into expert buffers (pad row T = 0)
+        xg_pad = torch.cat([x, x.new_zeros((Gl, 1, d))], dim=1)
+        x_e = torch.gather(xg_pad, 1,
+                           token_of_slot[:, :, None].expand(-1, -1, d))
+        first = F.one_hot(idx[..., 0], E).to(f32)        # (G, T, E)
+        return (x_e.reshape(Gl, E, cap, d), idx, slot, w * keep,
+                flat_slot, token_of_slot, first)
 
-    # expert FFN (SwiGLU)
+    x_e, idx, slot, w_keep, flat_slot, token_of_slot, first = per_group(
+        dispatch, gates, x)
+    # expert FFN (SwiGLU) on each rank's groups and experts, the weights
+    # gathered over their "fsdp" split. The reference constrains the
+    # buffers to (None, "act_experts", ...) and XLA splits d over "data";
+    # DTensor would repeat every group's expert work on each data rank,
+    # and its einsum backward cannot view the gradients its
+    # redistributions leave non-contiguous.
     cdt = x.dtype
-    h = silu(torch.einsum("gecd,edf->gecf", x_e,
-                          p["w_gate"].to(cdt))) * \
-        torch.einsum("gecd,edf->gecf", x_e, p["w_up"].to(cdt))
-    y_e = torch.einsum("gecf,efd->gecd", h, p["w_down"].to(cdt))
+
+    def experts(x_e, w_gate, w_up, w_down):
+        h = silu(torch.einsum("gecd,edf->gecf", x_e, w_gate.to(cdt))) * \
+            torch.einsum("gecd,edf->gecf", x_e, w_up.to(cdt))
+        return torch.einsum("gecf,efd->gecd", h, w_down.to(cdt))
+
+    buf_axes, w_axes = ("act_batch", "act_experts", None, None), \
+        ("act_experts", None, None)
+    y_e = local_apply(experts, (x_e, p["w_gate"], p["w_up"], p["w_down"]),
+                      (buf_axes, w_axes, w_axes, w_axes))
     y_e = y_e.reshape(G, E * cap, d)
 
-    if cfg.moe_combine == "gather":
-        # token t takes its k slots, weighted
-        safe_slot = torch.where(keep, idx * cap + slot, 0)
-        y_tok = torch.gather(
-            y_e, 1, safe_slot.reshape(G, T * k)[:, :, None].expand(-1, -1, d)
-        ).reshape(G, T, k, d)
-        y = (y_tok * (w * keep)[..., None].to(cdt)).sum(dim=2)
-    else:
+    def combine(y_e, idx, slot, w_keep, flat_slot, token_of_slot):
+        Gl, dev = y_e.shape[0], y_e.device
+        if cfg.moe_combine == "gather":
+            # token t takes its k slots, weighted
+            safe_slot = torch.where(slot < cap, idx * cap + slot, 0)
+            y_tok = torch.gather(
+                y_e, 1,
+                safe_slot.reshape(Gl, T * k)[:, :, None].expand(-1, -1, d)
+            ).reshape(Gl, T, k, d)
+            return (y_tok * w_keep[..., None].to(cdt)).sum(dim=2)
         # scatter-add combine: each slot adds its weighted output to its
         # token's row; empty slots add to the pad row T
-        w_slot = torch.zeros((G, E * cap + 1), dtype=f32, device=dev)
-        w_slot.scatter_(1, flat_slot.reshape(G, -1),
-                        (w * keep).to(f32).reshape(G, -1))
+        w_slot = torch.zeros((Gl, E * cap + 1), dtype=f32, device=dev)
+        w_slot.scatter_(1, flat_slot.reshape(Gl, -1),
+                        w_keep.to(f32).reshape(Gl, -1))
         w_slot = w_slot[:, :E * cap]
-        acc = torch.zeros((G, T + 1, d), dtype=cdt, device=dev)
+        acc = torch.zeros((Gl, T + 1, d), dtype=cdt, device=dev)
         acc.scatter_add_(1, token_of_slot[:, :, None].expand(-1, -1, d),
                          y_e * w_slot[:, :, None].to(cdt))
-        y = acc[:, :T]
+        return acc[:, :T]
+
+    y = per_group(combine, y_e, idx, slot, w_keep, flat_slot, token_of_slot)
     out = y.reshape(B, S, d)
 
     if cfg.num_shared_experts:
@@ -126,7 +153,7 @@ def apply_moe(p, x: torch.Tensor, cfg: ArchConfig
 
     # aux losses (computed over all tokens)
     me = gates.mean(dim=(0, 1))                            # (E,)
-    ce = F.one_hot(idx[..., 0], E).to(f32).mean(dim=(0, 1))
+    ce = first.mean(dim=(0, 1))
     aux = cfg.router_aux_weight * E * torch.sum(me * ce)
     zl = cfg.router_z_weight * torch.mean(
         torch.logsumexp(logits, dim=-1) ** 2)

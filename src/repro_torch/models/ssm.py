@@ -15,8 +15,10 @@ from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.sharding.partition import local_apply
 from .builder import Builder
 from .layers import silu
 
@@ -148,21 +150,55 @@ def apply_mamba2(p, x: torch.Tensor, cfg: ArchConfig,
                  cache: Optional[Dict] = None, pos: Optional[int] = None
                  ) -> Tuple[torch.Tensor, Optional[Dict]]:
     """cache = {"conv": (B, W-1, dconv), "state": (B,H,P,N)}, updated in
-    place; decode when ``pos`` is given (S must be 1)."""
-    B, S, d = x.shape
-    di, H, P, G, N = _dims(cfg)
-    cdt = x.dtype
-    zxbcdt = torch.matmul(x, p["in_proj"].to(cdt))
-    z, xbc, dt = _split_in(zxbcdt, cfg)
-    A = -torch.exp(p["A_log"].to(f32))
-    dt = F.softplus(dt.to(f32) + p["dt_bias"].to(f32))
+    place; decode when ``pos`` is given (S must be 1).
 
-    if cache is not None and pos is not None:
+    On a mesh the projections split over ``model`` as ``ff`` says, and
+    the conv, the scan and the gated norm run on each rank's batch rows
+    with the inner width whole (:func:`local_apply`: the scan's einsums
+    over split dimensions have no dependable DTensor strategy)."""
+    B, S, d = x.shape
+    cdt = x.dtype
+    if cache is not None and pos is not None and S != 1:
+        raise ValueError(f"an SSM decode step takes one token, not {S}")
+    zxbcdt = torch.matmul(x, p["in_proj"].to(cdt))
+    rows = ("act_batch", None, None)
+    whole = lambda t: (None,) * t.ndim  # noqa: E731
+    params = [p[k] for k in ("A_log", "dt_bias", "conv_w", "conv_b", "D",
+                             "norm_w")]
+    args = [zxbcdt] + params
+    axes = [rows] + [whole(t) for t in params]
+    decode = cache is not None and pos is not None
+    if decode:
+        args += [cache["conv"], cache["state"]]
+        axes += [rows, ("act_batch", None, None, None)]
+    yn, conv_state, h = local_apply(
+        lambda *a: _mamba2_core(cfg, decode, *a), args, axes)
+    if cache is not None:
+        for key, new in (("conv", conv_state), ("state", h)):
+            if isinstance(cache[key], DTensor):
+                new = new.redistribute(cache[key].device_mesh,
+                                       cache[key].placements)
+            cache[key].copy_(new)
+    out = torch.matmul(yn, p["out_proj"].to(cdt))
+    return out, cache
+
+
+def _mamba2_core(cfg, decode, zxbcdt, A_log, dt_bias, conv_w, conv_b, D,
+                 norm_w, conv_cache=None, state=None):
+    """The conv, the scan and the gated RMSNorm of :func:`apply_mamba2`:
+    (normed y (B,S,di) in the compute dtype, new conv state, new SSM
+    state)."""
+    B, S = zxbcdt.shape[:2]
+    di, H, P, G, N = _dims(cfg)
+    cdt = zxbcdt.dtype
+    z, xbc, dt = _split_in(zxbcdt, cfg)
+    A = -torch.exp(A_log.to(f32))
+    dt = F.softplus(dt.to(f32) + dt_bias.to(f32))
+
+    if decode:
         # ---- decode: O(1) state update ----
-        if S != 1:
-            raise ValueError(f"an SSM decode step takes one token, not {S}")
         xbc_act, conv_state = _causal_conv(
-            xbc, p["conv_w"].to(cdt), p["conv_b"].to(cdt), cache["conv"])
+            xbc, conv_w.to(cdt), conv_b.to(cdt), conv_cache)
         xh = xbc_act[..., :di].reshape(B, 1, H, P).to(f32)
         Bm = xbc_act[..., di:di + G * N].reshape(B, 1, G, N)
         Cm = xbc_act[..., di + G * N:].reshape(B, 1, G, N)
@@ -170,29 +206,23 @@ def apply_mamba2(p, x: torch.Tensor, cfg: ArchConfig,
         Bh = Bm.repeat_interleave(rep, dim=2).to(f32)   # (B,1,H,N)
         Ch = Cm.repeat_interleave(rep, dim=2).to(f32)
         dA = dt[:, 0] * A[None, :]                      # (B,H)
-        h = cache["state"] * torch.exp(dA)[:, :, None, None] + \
+        h = state * torch.exp(dA)[:, :, None, None] + \
             torch.einsum("bh,bhi,bhp->bhpi", dt[:, 0], Bh[:, 0], xh[:, 0])
         y = torch.einsum("bhi,bhpi->bhp", Ch[:, 0], h)[:, None]  # (B,1,H,P)
-        cache["conv"].copy_(conv_state)
-        cache["state"].copy_(h)
-        y = y + p["D"].to(f32)[None, None, :, None] * xh
+        y = y + D.to(f32)[None, None, :, None] * xh
     else:
         xbc_act, conv_state = _causal_conv(
-            xbc, p["conv_w"].to(cdt), p["conv_b"].to(cdt))
+            xbc, conv_w.to(cdt), conv_b.to(cdt))
         xh = xbc_act[..., :di].reshape(B, S, H, P)
         Bm = xbc_act[..., di:di + G * N].reshape(B, S, G, N)
         Cm = xbc_act[..., di + G * N:].reshape(B, S, G, N)
-        y, hT = _ssd_chunked(xh, dt, A, Bm, Cm, min(cfg.ssm_chunk, S),
-                             mm_dtype=cfg.dtype("compute"))
-        y = y.to(f32) + p["D"].to(f32)[None, None, :, None] * xh.to(f32)
-        if cache is not None:
-            cache["conv"].copy_(conv_state)
-            cache["state"].copy_(hT)
+        y, h = _ssd_chunked(xh, dt, A, Bm, Cm, min(cfg.ssm_chunk, S),
+                            mm_dtype=cfg.dtype("compute"))
+        y = y.to(f32) + D.to(f32)[None, None, :, None] * xh.to(f32)
 
-    # gated RMSNorm + out projection
+    # gated RMSNorm
     yf = y.reshape(B, S, di)
     gated = yf * silu(z.to(f32))
     var = (gated ** 2).mean(-1, keepdim=True)
-    yn = gated * torch.rsqrt(var + 1e-6) * p["norm_w"].to(f32)
-    out = torch.matmul(yn.to(cdt), p["out_proj"].to(cdt))
-    return out, cache
+    yn = gated * torch.rsqrt(var + 1e-6) * norm_w.to(f32)
+    return yn.to(cdt), conv_state, h

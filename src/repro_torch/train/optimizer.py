@@ -17,6 +17,7 @@ from dataclasses import dataclass
 from typing import Any, Dict, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.models.builder import tree_leaves, tree_map
 
@@ -72,8 +73,13 @@ def adamw_init(params: PyTree, oc: OptConfig) -> Dict:
 
 
 def global_norm(tree: PyTree) -> torch.Tensor:
-    return torch.sqrt(sum(torch.sum(leaf.to(f32) ** 2)
-                          for _, leaf in tree_leaves(tree)))
+    """The norm of every leaf together, a plain float32 scalar: over
+    DTensor leaves the sum of squares reduces across their shards."""
+    total = sum(torch.sum(leaf.to(f32) ** 2)
+                for _, leaf in tree_leaves(tree))
+    if isinstance(total, DTensor):
+        total = total.full_tensor()
+    return torch.sqrt(total)
 
 
 @torch.no_grad()

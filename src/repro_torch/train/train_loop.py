@@ -8,25 +8,34 @@ of :func:`~repro_torch.models.loss_fn` over the parameter leaves; a loop
 over microbatches stands in for the reference's ``lax.scan``, with a
 float32 accumulator.
 
-Data parallelism: on a mesh whose ``data`` axis spans more than one rank,
-each rank takes its slice of the (global) batch, and its gradients are
-all-reduced (mean) over the ``data`` group in ``oc.grad_dtype``; the
-parameters stay replicated plain tensors, so the reference's
-``constrain`` calls on the batch and the gradients have nothing to do
-here. FSDP/TP placement of parameters is not done yet (``ROADMAP.md``,
-queue A), so a ``model`` axis above 1 raises.
+Placement (FSDP/TP): on a mesh of more than one rank the state's
+leaves are DTensors placed by ``tree_shardings(..., PARAM_RULES)`` —
+``fsdp`` dimensions over ``data``, ``heads``/``kv``/``ff``/``vocab``/
+``experts`` over ``model`` — and a plain leaf is taken as replicated.
+Each microbatch of the global batch is split by ``("act_batch", ...)``;
+the gradients take their parameters' placements (the reference's
+``_shard_like_params``), so the data-parallel reduction of a sharded
+parameter is a reduce-scatter in ``oc.grad_dtype``; the float32
+accumulator and AdamW's moments keep those placements, and the update
+runs on the shards in place. On one rank, or without a mesh, every leaf
+is a plain tensor and nothing is redistributed — unless the state was
+placed as DTensors all the same (``place_tree(..., dtensor=True)``),
+which takes the placed path on a mesh of one rank.
 """
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
-import torch.distributed as dist
+from torch.distributed.tensor import DTensor, Replicate
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import init_model, loss_fn
-from repro_torch.models.builder import tree_from_leaves, tree_leaves
+from repro_torch.models.builder import tree_from_leaves, tree_leaves, tree_map
+from repro_torch.sharding.partition import (ACT_RULES, logical_to_sharding,
+                                            mesh_context)
 from .optimizer import OptConfig, adamw_init, adamw_update, dtype_of
 
 PyTree = Any
@@ -65,59 +74,69 @@ def train_state_axes(cfg: ArchConfig) -> TrainState:
     return _state_axes(init_model(cfg, abstract=True)[1])
 
 
-def _data_group(mesh):
-    """(group, rank in it, size) of the mesh's ``data`` axis; ``(None, 0,
-    1)`` without a mesh or with a one-rank axis."""
-    if mesh is None:
-        return None, 0, 1
-    sizes = dict(zip(mesh.mesh_dim_names, mesh.shape))
-    if sizes.get("model", 1) > 1:
-        raise NotImplementedError(
-            "a model axis above 1 needs tensor-parallel placement of the "
-            "parameters, which the port does not have yet (ROADMAP.md, "
-            "queue A: FSDP/TP placement of parameters)")
-    if sizes.get("data", 1) == 1:
-        return None, 0, 1
-    return (mesh.get_group("data"), mesh.get_local_rank("data"),
-            sizes["data"])
+def _placed(tree, mesh):
+    """``tree``'s leaves as DTensors on ``mesh``: a DTensor stays as it
+    is (placed by :func:`~repro_torch.sharding.place_tree`); a plain
+    tensor becomes a replicated DTensor over the same storage, so the
+    in-place update still lands in it."""
+    return tree_map(lambda x: x if isinstance(x, DTensor) else
+                    DTensor.from_local(x, mesh, [Replicate()] * mesh.ndim,
+                                       run_check=False), tree)
 
 
 def make_train_step(cfg: ArchConfig, oc: OptConfig, microbatches: int = 1,
                     mesh=None) -> Callable:
     """Returns train_step(state, batch) -> (state, metrics).
 
-    ``batch`` leaves (numpy arrays or tensors) are (B, ...), B divisible
-    by ``microbatches`` (and by the ``data`` axis of ``mesh``); grads
-    are cast to ``oc.grad_dtype``, accumulate in float32 across
+    ``batch`` leaves (numpy arrays or tensors) are the global (B, ...),
+    B divisible by ``microbatches``; grads are cast to ``oc.grad_dtype``
+    and take their parameter's placements, accumulate in float32 across
     microbatches, then one AdamW update runs in place. The metrics are
-    the last microbatch's, as in the reference (averaged over the
-    ``data`` ranks)."""
+    the last microbatch's, as in the reference, as plain tensors.
+
+    On a mesh of more than one rank, or when the state's leaves are
+    DTensors, the step is placed (see the module docstring): every
+    microbatch is placed by ``("act_batch", ...)`` and the step runs
+    under :func:`mesh_context`."""
     gdt = dtype_of(oc.grad_dtype)
-    group, rank, ranks = _data_group(mesh)
+
+    def shard_like(g, p):
+        """The reference's ``_shard_like_params``: ``g`` in ``p``'s
+        placements (a reduce-scatter of a partial sum over ``data``)."""
+        if not isinstance(p, DTensor):
+            return g
+        return g.redistribute(p.device_mesh, p.placements)
+
+    def place_batch(mb, like):
+        """``mb`` split by ``act_batch`` when the parameters (``like``,
+        one of them) are placed."""
+        if not isinstance(like, DTensor):
+            return mb
+        return {k: logical_to_sharding(
+            v.shape, ("act_batch",) + (None,) * (v.ndim - 1), mesh,
+            ACT_RULES).place(v, dtensor=True) for k, v in mb.items()}
 
     def single_grads(pairs, mb):
         live = [p.detach().requires_grad_() for _, p in pairs]
         tree = tree_from_leaves(
             (path, p) for (path, _), p in zip(pairs, live))
         with torch.enable_grad():
-            loss, metrics = loss_fn(tree, cfg, mb)
+            loss, metrics = loss_fn(tree, cfg, place_batch(mb, pairs[0][1]))
             grads = torch.autograd.grad(loss, live, allow_unused=True,
                                         materialize_grads=True)
-        grads = [(path, g.to(gdt)) for (path, _), g in zip(pairs, grads)]
-        return grads, {k: v.detach() for k, v in metrics.items()}
+        grads = [(path, shard_like(g.to(gdt), p))
+                 for (path, p), g in zip(pairs, grads)]
+        return grads, {k: _full(v.detach()) for k, v in metrics.items()}
 
-    def train_step(state: TrainState, batch: Dict
-                   ) -> Tuple[TrainState, Dict]:
-        pairs = list(tree_leaves(state.params))
+    def step(state: TrainState, batch: Dict, placed: bool
+             ) -> Tuple[TrainState, Dict]:
+        params = _placed(state.params, mesh) if placed else state.params
+        opt = (dict(state.opt, m=_placed(state.opt["m"], mesh),
+                    v=_placed(state.opt["v"], mesh)) if placed
+               else state.opt)
+        pairs = list(tree_leaves(params))
         dev = pairs[0][1].device
         batch = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
-        if ranks > 1:
-            B = next(iter(batch.values())).shape[0]
-            if B % ranks:
-                raise ValueError(f"batch {B} does not split over "
-                                 f"{ranks} data ranks")
-            lo = rank * (B // ranks)
-            batch = {k: v[lo:lo + B // ranks] for k, v in batch.items()}
         if microbatches == 1:
             grads, metrics = single_grads(pairs, batch)
         else:
@@ -126,8 +145,7 @@ def make_train_step(cfg: ArchConfig, oc: OptConfig, microbatches: int = 1,
                 raise ValueError(f"batch {B} does not split into "
                                  f"{microbatches} microbatches")
             n = B // microbatches
-            acc = [torch.zeros(p.shape, dtype=f32, device=dev)
-                   for _, p in pairs]
+            acc = [torch.zeros_like(p, dtype=f32) for _, p in pairs]
             for i in range(microbatches):
                 g, metrics = single_grads(
                     pairs, {k: v[i * n:(i + 1) * n]
@@ -136,19 +154,23 @@ def make_train_step(cfg: ArchConfig, oc: OptConfig, microbatches: int = 1,
                     a += gg.to(f32)
             grads = [(path, (a / microbatches).to(gdt))
                      for (path, _), a in zip(pairs, acc)]
-        if group is not None:
-            for _, g in grads:
-                dist.all_reduce(g, group=group)
-                g /= ranks
-            # the token count adds up; the losses average
-            names = sorted(metrics)
-            vals = torch.stack([metrics[k].to(f32) for k in names])
-            dist.all_reduce(vals, group=group)
-            metrics = {k: (v if k == "tokens" else v / ranks).to(
-                metrics[k].dtype) for k, v in zip(names, vals)}
-        _, _, opt_metrics = adamw_update(tree_from_leaves(grads), state.opt,
-                                         state.params, oc)
+        _, _, opt_metrics = adamw_update(tree_from_leaves(grads), opt,
+                                         params, oc)
         state.step += 1
-        return state, dict(metrics, **opt_metrics)
+        return state, dict(metrics, **{k: _full(v)
+                                       for k, v in opt_metrics.items()})
+
+    def train_step(state: TrainState, batch: Dict
+                   ) -> Tuple[TrainState, Dict]:
+        placed = mesh is not None and (
+            mesh.size() > 1
+            or isinstance(next(tree_leaves(state.params))[1], DTensor))
+        with mesh_context(mesh) if placed else contextlib.nullcontext():
+            return step(state, batch, placed)
 
     return train_step
+
+
+def _full(x: torch.Tensor) -> torch.Tensor:
+    """A metric as a plain tensor (a DTensor's global value)."""
+    return x.full_tensor() if isinstance(x, DTensor) else x
