@@ -111,11 +111,26 @@ points a user calls:
     step equals its plain step, and 20 bf16 steps stay near phase 13's
     losses;
     the closure cell's bound at n = 6656 at most ``closure_step``'s time
-    there.
+    there;
+15. the example twins and cross-layout checkpoints (:func:`run_examples`):
+    the seven twins of ``repro_torch.examples`` but ``train_lm`` through
+    ``main(device="cuda")`` at the reference scripts' sizes, each making
+    its oracle checks and launching at least one kernel of its path
+    (the merge join, or ``bool_matmul`` over a 1 x 1 NCCL mesh), then
+    each but ``serve_lm`` again on the CPU, where the kernels' plain
+    versions run, returning exactly what it returned on the card
+    (entries, every answer, delta and pruning counters, plan and
+    router); then
+    ``train_lm`` at its 100M width (B = 8, S = 256) for 40 steps with a
+    checkpoint every 10 and the failure at step 20 (one restart, 40
+    effective steps, a falling loss); then a placed ``qwen3-0.6b-smoke``
+    state saved and restored into a plain and a placed template,
+    resharded to plain leaves and back (bit-identical), and templates
+    of another shape and of another dtype refused.
 
 Launch counts are reset to 0 right before steps 3-4, 7, 8, 9, each
-configuration of 10, each part of 11, 12, 13 and 14, and read right after
-each;
+configuration of 10, each part of 11, 12, 13, 14 and each twin of 15,
+and read right after each;
 the ``kernels`` line reports each kernel's count from the path that runs
 it. The merge join, the frontier wave,
 ``frontier_steps`` and ``bitpack_matmul`` take less time on the card
@@ -2256,6 +2271,210 @@ def run_dry_run(torch, card, trained, kernels) -> dict:
     return dict(step_p50_ms=p50, wall_s=wall)
 
 
+# -- phase 15: the eight example twins and cross-layout checkpoints ------ #
+# the kernels on each twin's path; the hybrid build sends a hub's waves
+# to the frontier kernel only above GATHER_THRESHOLD of two-hop work,
+# which no hub of these 250-300-vertex graphs reaches, so a twin must
+# launch at least one of its kernels, not each
+EXAMPLE_KERNELS = {
+    "online_service": ("label_frontier", "mergejoin"),
+    "quickstart": (),
+    "fraud_detection": ("mergejoin",),
+    "delta_updates": ("label_frontier", "mergejoin"),
+    "sharded_service": ("label_frontier", "mergejoin"),
+    "distributed_index": ("bool_matmul", "mergejoin"),
+    "serve_lm": (),
+}
+# each twin but serve_lm runs again on the CPU, where the kernels' plain
+# versions run: its returned dict (entries, every answer, delta and
+# pruning counters, plan and router) must equal the card's but for the
+# answering backend's name. serve_lm's bf16 tokens follow each device's
+# arithmetic; phase 12 holds the model
+PLAIN_RERUN = [n for n in EXAMPLE_KERNELS if n != "serve_lm"]
+DEVICE_KEYS = {"backends"}
+TRAIN_LM = dict(steps=40, batch=8, seq=256, ckpt_every=10)
+C9_ARCH = "qwen3-0.6b-smoke"
+
+
+def _same_bits(torch, what, want, got, dtensor: bool) -> None:
+    """Every leaf of ``got`` equal, bit for bit, to ``want``'s (full
+    values), a DTensor where ``dtensor`` says, else a plain tensor on
+    the card."""
+    from torch.distributed.tensor import DTensor
+    for (path, a), (_, b) in zip(_leaves(want), _leaves(got)):
+        if isinstance(b, DTensor) != dtensor or not b.is_cuda:
+            raise AssertionError(f"phase 15 {what}: {path} is "
+                                 f"{type(b).__name__} on {b.device}")
+        full = lambda x: x.full_tensor() if isinstance(x, DTensor) else x  # noqa: E731
+        a, b = full(a), full(b)
+        if a.dtype != b.dtype or not torch.equal(a, b):
+            raise AssertionError(f"phase 15 {what}: {path} differs")
+
+
+def run_cross_layout(torch, card) -> None:
+    """C9 on one card: a placed ``qwen3-0.6b-smoke`` train state (every
+    leaf a DTensor of a 1 x 1 NCCL mesh) saved, restored into a plain
+    template and into a placed one; ``ElasticMeshManager.reshard`` to
+    plain leaves and back; a template of another shape or dtype must
+    raise."""
+    import tempfile
+    from repro_torch.checkpoint import CheckpointManager, restore_pytree
+    from repro_torch.configs import get_config
+    from repro_torch.core.distributed import init_world
+    from repro_torch.ft import ElasticMeshManager
+    from repro_torch.sharding.partition import (PARAM_RULES, place_tree,
+                                                tree_shardings)
+    from repro_torch.train import OptConfig
+    from repro_torch.train.train_loop import init_train_state
+    import torch.distributed as dist
+
+    t0 = time.perf_counter()
+    started = init_world("cuda")
+    root = tempfile.TemporaryDirectory()
+    try:
+        cfg = get_config(C9_ARCH)
+        low = "float32" if cfg.param_dtype == "float32" else "bfloat16"
+        oc = OptConfig(m_dtype=low, v_dtype=low, grad_dtype=low)
+
+        def fresh(seed):
+            return init_train_state(cfg, oc, torch.Generator(
+                "cuda").manual_seed(seed), device="cuda")
+
+        em = ElasticMeshManager(model_parallel=1, device="cuda")
+        mesh = em.build()
+        state, axes = fresh(SEED)
+        sh = tree_shardings(state, axes, mesh, PARAM_RULES)
+        placed = place_tree(state, sh, dtensor=True)
+        _same_bits(torch, "placement", state, placed, dtensor=True)
+        d = root.name
+        CheckpointManager(d).save(3, placed, extra={"step": 3})
+        plain_t, _ = fresh(SEED + 1)
+        got, extra = restore_pytree(d, 3, plain_t)
+        if extra != {"step": 3}:
+            raise AssertionError(f"phase 15 restore: extra {extra}")
+        _same_bits(torch, "restore into a plain template", state, got,
+                   dtensor=False)
+        placed_t = place_tree(fresh(SEED + 1)[0], sh, dtensor=True)
+        got, _ = restore_pytree(d, 3, placed_t)
+        _same_bits(torch, "restore into a placed template", state, got,
+                   dtensor=True)
+        plain = em.reshard(placed, sh)
+        _same_bits(torch, "reshard to plain leaves", state, plain,
+                   dtensor=False)
+        back = em.reshard(plain, sh, dtensor=True)
+        _same_bits(torch, "reshard back to DTensors", state, back,
+                   dtensor=True)
+        embed = plain_t.params["embed"]
+        refused = []
+        for what, leaf in (("shape", torch.zeros(3, 5, device="cuda")),
+                           ("dtype", embed.to(torch.float64))):
+            wrong = dict(plain_t.params, embed=leaf)
+            try:
+                restore_pytree(d, 3, type(plain_t)(wrong, plain_t.opt,
+                                                   plain_t.step))
+            except ValueError as e:
+                refused.append(str(e))
+            else:
+                raise AssertionError(f"phase 15: a template of another "
+                                     f"{what} was restored")
+            if "embed" not in refused[-1] or what not in refused[-1]:
+                raise AssertionError(f"phase 15: the refusal names no key "
+                                     f"or {what}: {refused[-1]}")
+        n = len(_leaves(state))
+        log(f"phase 15 cross-layout checks ({C9_ARCH}, {n} leaves, 1 x 1 "
+            f"{dist.get_backend()} mesh): a placed state saved, restored "
+            f"into a plain and into a placed template, resharded to plain "
+            f"leaves and back, every leaf bit-identical; templates of "
+            f"another shape and of another dtype refused ({refused}); "
+            f"{time.perf_counter() - t0:.2f} s (host clock)")
+    finally:
+        root.cleanup()
+        if started:
+            dist.destroy_process_group()
+
+
+def run_examples(torch, card, kernels) -> dict:
+    """Phase 15: the eight example twins (``repro_torch.examples``) on
+    the card through their ``main(device="cuda")``, each at the
+    reference's own size but ``train_lm``: its 100M width (B = 8, S =
+    256) for 40 steps, a checkpoint every 10 and the failure at step 20
+    (one restart, a falling loss, 40 effective steps). Each twin's launch
+    counts start at 0; a twin whose path names kernels must launch at
+    least one of them. Each twin of ``PLAIN_RERUN`` then runs on the CPU,
+    where the plain versions run, and must return what it returned on the
+    card. Then the cross-layout checks of :func:`run_cross_layout`. Logs
+    each twin's wall time and launches; returns the launches by twin."""
+    import contextlib
+    import importlib
+    import io
+    t_phase = time.perf_counter()
+    launches = {}
+    for name, want in EXAMPLE_KERNELS.items():
+        mod = importlib.import_module(f"repro_torch.examples.{name}")
+        for kern in kernels.values():
+            kern.launches = 0
+        log(f"phase 15 {name}: the twin's report follows")
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(sys.stderr):
+            got = mod.main(device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {k: kern.launches for k, kern in kernels.items()
+                  if kern.launches}
+        launches[name] = counts
+        if want and not any(counts.get(k) for k in want):
+            raise AssertionError(f"phase 15 {name}: none of {want} "
+                                 f"launched: {counts}")
+        log(f"phase 15 {name}: {wall:.2f} s (host clock), launches "
+            f"{counts or 'none'} (path names {list(want) or 'none'}) "
+            f"({card})")
+        if name in PLAIN_RERUN:
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()):
+                plain = mod.main(device="cpu")
+            keys = sorted((got.keys() | plain.keys()) - DEVICE_KEYS)
+            diff = [k for k in keys if got.get(k) != plain.get(k)]
+            if diff:
+                raise AssertionError(
+                    f"phase 15 {name}: the card's {diff} differ from the "
+                    f"CPU's: " + "; ".join(f"{k} {got.get(k)} vs "
+                                           f"{plain.get(k)}" for k in diff))
+            log(f"phase 15 {name}: equal to its run on the CPU (plain "
+                f"versions) in {keys}, {time.perf_counter() - t0:.2f} s")
+
+    from repro_torch.examples import train_lm
+    for kern in kernels.values():
+        kern.launches = 0
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(sys.stderr):
+        got = train_lm.main(device="cuda", **TRAIN_LM)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    history = got.pop("history")
+    if got["restarts"] != 1 or got["steps_run"] != TRAIN_LM["steps"] \
+            or len(history) != TRAIN_LM["steps"] + 1:
+        raise AssertionError(f"phase 15 train_lm: {got}, {len(history)} "
+                             f"losses")
+    if not np.all(np.isfinite(history)) or history[-1] >= history[0]:
+        raise AssertionError(f"phase 15 train_lm: losses {history}")
+    launches["train_lm"] = {k: kern.launches for k, kern in kernels.items()
+                            if kern.launches}
+    log(f"phase 15 train_lm ({got['params']} parameters, f32, B="
+        f"{TRAIN_LM['batch']}, S={TRAIN_LM['seq']}, {TRAIN_LM['steps']} "
+        f"steps, a checkpoint every {TRAIN_LM['ckpt_every']}, failure at "
+        f"step {TRAIN_LM['steps'] // 2}): {wall:.2f} s (host clock), "
+        f"restarts {got['restarts']}, effective steps {got['steps_run']}, "
+        f"loss {history[0]:.4f} -> {history[-1]:.4f}, stragglers "
+        f"{got['stragglers']}, launches {launches['train_lm'] or 'none'} "
+        f"({card})")
+    log(f"phase 15 train_lm losses: "
+        f"{' '.join(f'{x:.4f}' for x in history)}")
+    run_cross_layout(torch, card)
+    log(f"phase 15: {time.perf_counter() - t_phase:.1f} s (host clock) "
+        f"({card})")
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2535,6 +2754,9 @@ def main() -> int:
     for kern in KERNELS.values():
         kern.launches = 0
     run_dry_run(torch, card, trained, KERNELS)
+
+    # -- the example twins and cross-layout checkpoints ------------------ #
+    run_examples(torch, card, KERNELS)
 
     csrc = "src/repro_torch/kernels/csrc/"
     meta = {

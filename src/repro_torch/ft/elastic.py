@@ -8,8 +8,12 @@
   its request round trips.
 * **ElasticMeshManager** — on rank loss, rebuild the largest valid
   ("data", "model") ``DeviceMesh`` from the survivors (shrink ``data``,
-  keep ``model`` intact: TP groups must stay whole) and re-place the
-  train state as its shardings say.
+  keep ``model`` intact: TP groups must stay whole) and re-shard the
+  train state onto it, as the reference's ``device_put`` does: a leaf
+  placed on the old mesh is gathered there (a collective of the old
+  mesh's ranks, those the shrink drops included, which then leave) and
+  placed on the new one; replay from the last checkpoint, which restores
+  onto any layout, if the failure hit mid-step.
 * **resilient_loop** — checkpoint/restart driver: runs ``train_step``,
   checkpoints every N steps (async), restores after injected failures;
   a restarted run ends bit-identical to an uninterrupted one.
@@ -25,12 +29,13 @@ import numpy as np
 import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
+from torch.distributed.tensor import DTensor
 
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.core.devices import resolve_device
 from repro_torch.core.distributed import init_world
-from repro_torch.models.builder import tree_flatten
-from repro_torch.sharding.partition import place_tree
+from repro_torch.models.builder import tree_flatten, tree_unflatten
+from repro_torch.sharding.partition import NamedSharding
 
 PyTree = Any
 
@@ -86,11 +91,30 @@ class ElasticMeshManager:
         ranks = mesh.mesh.reshape(-1).tolist()
         return self.build(ranks[:len(ranks) - lost])
 
-    def reshard(self, tree: PyTree, shardings: PyTree) -> PyTree:
-        """``tree`` placed as ``shardings`` (from
-        :func:`repro_torch.sharding.tree_shardings`) say: on a one-rank
-        mesh, onto its device."""
-        return place_tree(tree, shardings)
+    def reshard(self, tree: PyTree, shardings: PyTree,
+                dtensor: bool = False) -> PyTree:
+        """``tree`` re-placed as ``shardings`` (from
+        :func:`repro_torch.sharding.tree_shardings`, on any mesh) say,
+        with the same values: what ``place_tree(full values, shardings,
+        dtensor)`` gives (a plain tensor on a one-rank mesh unless
+        ``dtensor``). A DTensor leaf already on the target mesh is
+        redistributed; one on another mesh is gathered on its own mesh
+        first (``full_tensor()``, a collective): every rank of the old
+        mesh calls this, those the shrink drops included, and a dropped
+        rank then leaves, its result unused. A plain leaf is placed as
+        it is."""
+        sh = [s for _, s in tree_flatten(
+            shardings, is_leaf=lambda s: isinstance(s, NamedSharding))]
+        out = []
+        for (_, x), s in zip(tree_flatten(tree), sh):
+            keep = dtensor or s.mesh.size() > 1
+            if isinstance(x, DTensor):
+                if keep and x.device_mesh == s.mesh:
+                    out.append(x.redistribute(s.mesh, s.placements))
+                    continue
+                x = x.full_tensor()
+            out.append(s.place(x, dtensor))
+        return tree_unflatten(tree, out)
 
 
 @dataclass

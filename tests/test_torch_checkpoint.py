@@ -97,7 +97,8 @@ def test_checkpoint_manager_gc_and_async(tmp_path):
     assert latest_step(str(tmp_path)) == 4
     assert sorted(os.listdir(tmp_path)) == ["step_00000003",
                                             "step_00000004"]
-    step, tree, _ = mgr.restore_latest({"x": torch.zeros(3)})
+    step, tree, _ = mgr.restore_latest({"x": torch.zeros(
+        3, dtype=torch.float64)})
     assert step == 4 and tree["x"][0] == 4 and tree["x"].dtype == \
         torch.float64
 
