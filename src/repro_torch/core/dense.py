@@ -32,6 +32,15 @@ default (TF32 off) is assumed and not changed here.
 Entry points take ``device="cuda"`` by default and raise where no card
 is present. ``DenseEngine.reach`` is a numpy ``(C, n, n)`` bool array, as
 in the JAX package.
+
+Both builds name their phases on ``torch.profiler``'s timeline while it
+records (:func:`repro_torch.obs.region`: ``repro_torch.dense.adjacency``,
+``.reach``, ``.download``; ``repro_torch.condensed.prepare``,
+``.hub_loop``, then per side ``.download`` and ``.index_fill``). The
+condensed build counts its runs and the entries it hands to the
+``RLCIndex`` in :func:`repro_torch.obs.process_obs`'s registry
+(:class:`~repro_torch.obs.BuildCounters`, backend ``device_condensed``).
+Neither adds a wait or a device allocation.
 """
 from __future__ import annotations
 
@@ -49,6 +58,7 @@ from repro_torch.core.minimum_repeat import (LabelSeq, enumerate_mrs,
 from repro_torch.core.rlc_index import RLCIndex
 from repro_torch.kernels import bool_semiring
 from repro_torch.kernels.ref import bool_matmul_ref
+from repro_torch.obs import process_obs, region
 
 MatMul = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
 
@@ -136,10 +146,13 @@ class DenseEngine:
         n = graph.num_vertices
         mrs = enumerate_mrs(graph.num_labels, k)
         dtype = torch.float32 if matmul is not None else torch.bfloat16
-        A = label_adjacency(graph, dev, dtype)
-        R = _all_mr_reach(A, mrs, n, matmul)
+        with region("dense.adjacency"):
+            A = label_adjacency(graph, dev, dtype)
+        with region("dense.reach"):
+            R = _all_mr_reach(A, mrs, n, matmul)
         del A
-        reach = (R[:, :n, :n] > 0).cpu().numpy()
+        with region("dense.download"):
+            reach = (R[:, :n, :n] > 0).cpu().numpy()
         return DenseEngine(graph, k, mrs, mr_id_space(graph.num_labels, k),
                            reach)
 
@@ -218,19 +231,29 @@ def build_condensed_device(graph: LabeledGraph, k: int,
     n, C = graph.num_vertices, len(eng.mrs)
     if eng.reach.shape != (C, n, n):
         raise ValueError(f"reach must be ({C}, {n}, {n})")
-    aid = graph.access_ids()
-    R = torch.from_numpy(np.ascontiguousarray(eng.reach)).to(dev).float()
-    OUT = torch.zeros((C, n, n), dtype=torch.float32, device=dev)
-    IN = torch.zeros((C, n, n), dtype=torch.float32, device=dev)
-    aid_t = torch.from_numpy(aid.astype(np.int64)).to(dev)
-    order = torch.from_numpy(graph.access_order().astype(np.int64)).to(dev)
-    for i in range(0, n, hub_batch):
-        _hub_batch_step(OUT, IN, R, aid_t, order[i:i + hub_batch])
+    ctr = process_obs().build_counters("device_condensed")
+    with region("condensed.prepare"):
+        aid = graph.access_ids()
+        R = torch.from_numpy(np.ascontiguousarray(eng.reach)).to(dev).float()
+        OUT = torch.zeros((C, n, n), dtype=torch.float32, device=dev)
+        IN = torch.zeros((C, n, n), dtype=torch.float32, device=dev)
+        aid_t = torch.from_numpy(aid.astype(np.int64)).to(dev)
+        order = torch.from_numpy(graph.access_order().astype(np.int64)).to(
+            dev)
+    with region("condensed.hub_loop"):
+        for i in range(0, n, hub_batch):
+            _hub_batch_step(OUT, IN, R, aid_t, order[i:i + hub_batch])
     del R
-    idx = RLCIndex(n, k, aid)
-    for entries, add in ((OUT, idx.add_out), (IN, idx.add_in)):
-        cs, ys, xs = (t.cpu().numpy() for t in torch.nonzero(
-            entries > 0, as_tuple=True))
-        for c, y, x in zip(cs.tolist(), ys.tolist(), xs.tolist()):
-            add(y, x, eng.mrs[c])
+    with region("condensed.index_fill"):
+        idx = RLCIndex(n, k, aid)
+    for entries, add, count in ((OUT, idx.add_out, ctr.entries_out),
+                                (IN, idx.add_in, ctr.entries_in)):
+        with region("condensed.download"):
+            cs, ys, xs = (t.cpu().numpy() for t in torch.nonzero(
+                entries > 0, as_tuple=True))
+        count.inc(len(cs))
+        with region("condensed.index_fill"):
+            for c, y, x in zip(cs.tolist(), ys.tolist(), xs.tolist()):
+                add(y, x, eng.mrs[c])
+    ctr.runs.inc()
     return idx, eng

@@ -22,15 +22,16 @@ either package's validators accept the other's documents.
 
 :class:`Observability` bundles one registry + one tracer; a service owns
 one instance created from its config. Counters are default-on (cheap),
-tracing is opt-in via ``trace_sample_rate``.
+tracing is opt-in via ``trace_sample_rate``. :func:`process_obs` is the
+process-wide instance the condensed device build reports into.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, Optional
 
 from .audit import (AUDIT_SCHEMA, audit_index, bank_audit_metrics,
                     fingerprint, validate_audit_report)
-from .build_obs import BuildPhaseObserver
+from .build_obs import BuildCounters, BuildPhaseObserver
 from .explain import (WITNESS_SCHEMA, build_witness, explain_rows,
                       replay_witness, verify_witness_entries)
 from .export import (SCHEMA, snapshot, snapshot_to_prometheus,
@@ -38,18 +39,18 @@ from .export import (SCHEMA, snapshot, snapshot_to_prometheus,
 from .metrics import (NULL_REGISTRY, Counter, Gauge, Histogram, Metric,
                       MetricsRegistry, NullRegistry, Reservoir)
 from .shadow import ShadowVerifier, attach_shadow
-from .tracing import SpanEvent, Trace, Tracer, span_tree
+from .tracing import SpanEvent, Trace, Tracer, region, span_tree
 
 __all__ = [
-    "AUDIT_SCHEMA", "SCHEMA", "WITNESS_SCHEMA", "BuildPhaseObserver",
-    "Counter", "Gauge", "Histogram", "Metric", "MetricsRegistry",
-    "NullRegistry", "NULL_REGISTRY", "Observability", "NULL_OBS",
-    "Reservoir", "ShadowVerifier", "SpanEvent", "Trace", "Tracer",
-    "attach_shadow", "audit_index", "bank_audit_metrics",
-    "build_witness", "explain_rows", "fingerprint", "replay_witness",
-    "snapshot", "snapshot_to_prometheus", "span_tree", "to_prometheus",
-    "validate_snapshot", "validate_audit_report",
-    "verify_witness_entries",
+    "AUDIT_SCHEMA", "SCHEMA", "WITNESS_SCHEMA", "BuildCounters",
+    "BuildPhaseObserver", "Counter", "Gauge", "Histogram", "Metric",
+    "MetricsRegistry", "NullRegistry", "NULL_REGISTRY", "Observability",
+    "NULL_OBS", "Reservoir", "ShadowVerifier", "SpanEvent", "Trace",
+    "Tracer", "attach_shadow", "audit_index", "bank_audit_metrics",
+    "build_witness", "explain_rows", "fingerprint", "process_obs",
+    "region", "replay_witness", "snapshot", "snapshot_to_prometheus",
+    "span_tree", "to_prometheus", "validate_snapshot",
+    "validate_audit_report", "verify_witness_entries",
 ]
 
 
@@ -75,6 +76,7 @@ class Observability:
             self.registry = NULL_REGISTRY
             self.tracer = Tracer(sample_rate=0.0, max_events=0)
         self._build_observer: Optional[BuildPhaseObserver] = None
+        self._build_counters: Dict[str, BuildCounters] = {}
 
     # ------------------------------------------------------------------ #
     def build_observer(self, context: str = "full") -> \
@@ -90,6 +92,15 @@ class Observability:
                     self.registry, context=context)
             return self._build_observer
         return BuildPhaseObserver(self.registry, context=context)
+
+    def build_counters(self, backend: str) -> BuildCounters:
+        """The device builds' counters for ``backend``, bound once (null
+        cells in disabled mode)."""
+        cells = self._build_counters.get(backend)
+        if cells is None:
+            cells = self._build_counters[backend] = BuildCounters(
+                self.registry, backend)
+        return cells
 
     # -- exporters ------------------------------------------------------ #
     def snapshot(self, extra: Optional[dict] = None) -> dict:
@@ -109,3 +120,12 @@ class Observability:
 
 #: shared inert instance for call sites constructed without telemetry
 NULL_OBS = Observability(enabled=False)
+
+_PROCESS_OBS = Observability()
+
+
+def process_obs() -> Observability:
+    """The process-wide, enabled :class:`Observability` (no span
+    sampling): ``build_condensed_device`` counts its runs and entries in
+    it."""
+    return _PROCESS_OBS

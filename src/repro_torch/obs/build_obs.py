@@ -14,13 +14,17 @@ the batched backends call it from :meth:`PhaseRunner.run`, the python
 reference from its own hub loop, and the delta engine from both its
 traced full builds and its dirty-phase re-runs — so delta re-run phases
 land in the same series as full-build phases, labeled apart.
+
+:class:`BuildCounters` holds the condensed device build's counters
+(``build_condensed_device``): its runs and the entries it hands to the
+``RLCIndex``, each bound once.
 """
 from __future__ import annotations
 
 import heapq
 from typing import List, Optional, Tuple
 
-__all__ = ["BuildPhaseObserver"]
+__all__ = ["BuildCounters", "BuildPhaseObserver"]
 
 #: order must match repro_torch.build.base.BuildStats._COUNTERS
 _COUNTER_NAMES = ("kernel_search_states", "kernel_bfs_states", "inserted",
@@ -143,3 +147,28 @@ class BuildPhaseObserver:
         """The top-N slowest phases, slowest first (snapshot ``extra``)."""
         return [dict(hub=h, direction=d, seconds=round(s, 6))
                 for s, h, d in sorted(self._slowest, reverse=True)]
+
+
+class BuildCounters:
+    """A dense device build's counters for one ``backend``
+    (``device_condensed``), bound once so a build pays one ``+=`` a
+    counter:
+
+    * ``rlc_build_runs{context="full"}``: builds completed (the series
+      :meth:`BuildPhaseObserver.build_done` counts other backends in);
+    * ``rlc_build_entries{side}``: entries handed to the ``RLCIndex``.
+    """
+
+    __slots__ = ("runs", "entries_out", "entries_in")
+
+    def __init__(self, registry, backend: str):
+        self.runs = registry.counter(
+            "rlc_build_runs", desc="completed index builds",
+            labelnames=("context", "backend")).labels(context="full",
+                                                      backend=backend)
+        entries = registry.counter(
+            "rlc_build_entries",
+            desc="index entries a device build handed to the RLCIndex",
+            labelnames=("backend", "side"))
+        self.entries_out = entries.labels(backend=backend, side="out")
+        self.entries_in = entries.labels(backend=backend, side="in")

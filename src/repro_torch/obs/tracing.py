@@ -16,15 +16,45 @@ programmatic analysis.
 The event buffer is bounded: past ``max_events`` new spans are dropped
 and counted (``tracer.dropped``) — tracing must never become the memory
 leak it exists to diagnose.
+
+:func:`region` puts a named range on ``torch.profiler``'s timeline (the
+device trace's clock) while the profiler records on the calling thread,
+and costs one flag check otherwise. The dense builds open their phases
+through it (``repro_torch.dense.*``, ``repro_torch.condensed.*``), and a
+sampled :meth:`Trace.span` opens ``repro_torch.service.<name>`` beside
+its own record, so a profiler trace shows both.
 """
 from __future__ import annotations
 
+import contextlib
 import random
 import time
 from dataclasses import dataclass, field
 from typing import Callable, List, Optional
 
-__all__ = ["SpanEvent", "Trace", "Tracer", "span_tree"]
+__all__ = ["SpanEvent", "Trace", "Tracer", "region", "span_tree"]
+
+#: prefix of every range the program opens on the profiler's timeline
+REGION_PREFIX = "repro_torch."
+
+_NO_RANGE = contextlib.nullcontext()
+_profiler_on: Optional[Callable[[], bool]] = None
+
+
+def region(name: str):
+    """``with region("condensed.hub_loop"): ...``: a
+    ``torch.profiler.record_function`` range named ``repro_torch.<name>``
+    while the profiler records on this thread, else a shared no-op
+    context (a ``record_function`` costs tens of microseconds even with
+    the profiler off; the check costs well under one)."""
+    global _profiler_on
+    if _profiler_on is None:
+        import torch
+        _profiler_on = torch._C._autograd._profiler_enabled
+    if not _profiler_on():
+        return _NO_RANGE
+    import torch.profiler
+    return torch.profiler.record_function(REGION_PREFIX + name)
 
 
 @dataclass(frozen=True)
@@ -40,9 +70,10 @@ class SpanEvent:
 
 
 class _SpanCtx:
-    """Context manager recording one span on exit."""
+    """Context manager recording one span on exit, inside the profiler
+    range ``repro_torch.service.<name>`` (see :func:`region`)."""
 
-    __slots__ = ("_trace", "_name", "_cat", "_args", "_t0")
+    __slots__ = ("_trace", "_name", "_cat", "_args", "_t0", "_range")
 
     def __init__(self, trace: "Trace", name: str, cat: str, args):
         self._trace = trace
@@ -51,12 +82,15 @@ class _SpanCtx:
         self._args = args
 
     def __enter__(self) -> "_SpanCtx":
+        self._range = region("service." + self._name)
+        self._range.__enter__()
         self._t0 = self._trace.tracer._now()
         return self
 
     def __exit__(self, exc_type, exc, tb) -> bool:
         tr = self._trace
         t1 = tr.tracer._now()
+        self._range.__exit__(exc_type, exc, tb)
         if exc_type is not None:
             args = dict(self._args or ())
             args["error"] = exc_type.__name__

@@ -321,6 +321,10 @@ def test_serve_lm(jax_ref):
 
 def test_train_lm_survives_its_failure(tmp_path, monkeypatch):
     from repro_torch.launch.train import run
+    # torch's first activation checkpoint imports torch._dynamo, which
+    # makes its cache directory under the temporary directory; import it
+    # first so that directory does not land in ``tmp_path``
+    import torch._dynamo  # noqa: F401
     train_lm = twin("train_lm")
     arch, steps = "qwen3-0.6b-smoke", 10
     monkeypatch.setattr(tempfile, "tempdir", str(tmp_path))

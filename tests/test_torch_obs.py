@@ -266,6 +266,42 @@ def test_build_observer_times_the_cuda_backend_phases(pair):
     assert "rlc_build_phase_seconds" in svc.prometheus()
 
 
+def test_sampled_spans_land_on_the_profilers_timeline(monkeypatch):
+    """A sampled ``Trace.span`` opens ``repro_torch.service.<name>`` while
+    the profiler records (the service's ``execute`` among them) and no
+    ``record_function`` while it does not; its own record is kept either
+    way, and ``add`` / ``add_ending_now`` open no range."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.obs import Tracer
+
+    calls = []
+    real = torch.profiler.record_function
+    monkeypatch.setattr(torch.profiler, "record_function",
+                        lambda name, *a: calls.append(name) or real(name, *a))
+    tracer = Tracer(sample_rate=1.0)
+    tr = tracer.maybe_trace()
+    with tr.span("execute", cat="service"):
+        pass
+    tr.add("after", 0.0, 1e-6)
+    assert calls == [] and [e.name for e in tracer.events] == ["execute",
+                                                               "after"]
+    g = tgen.erdos_renyi(*GRAPH, seed=11)
+    svc = RLCService(g, build_rlc_index(g, K), ServiceConfig(
+        k=K, device="cpu", trace_sample_rate=1.0))
+    queries = biased_true_queries(g, K, n=8, seed=7).true_queries
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with tr.span("probe"):
+            tr.add_ending_now("wait", 1e-6)
+        svc.query_batch(queries)
+    names = [e.name() for e in prof.profiler.kineto_results.events()]
+    assert "repro_torch.service.probe" in names
+    assert "repro_torch.service.execute" in names
+    assert not any(n.endswith(".wait") for n in names)
+    assert "repro_torch.service.probe" in calls
+    assert any(e.name == "execute" for e in svc.obs.tracer.events)
+    svc.close()
+
+
 # ------------------------------------------------------------------ #
 # Shadow verification
 # ------------------------------------------------------------------ #
