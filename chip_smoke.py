@@ -38,7 +38,9 @@ points a user calls:
    with the wrapper's packing of ``A``;
 7. the dense path: ``DenseEngine.build`` on the card (bf16 stacks, every
    product through the semiring kernels; its ``reach`` must equal the
-   plain path's), ``build_condensed_device`` at ``hub_batch = 8`` and an
+   plain path's), ``build_condensed_device`` at ``hub_batch = 8`` (two
+   ``hub_cover`` launches a hub batch, then that kernel held against its
+   plain version on one batch over the AD reach, and timed) and an
    ``RLCService`` over the condensed index, whose answers to 64 sources x
    all targets x all MRs, through the merge kernel, must equal ``reach``
    and the step-3 index's answers; those two 3,767,616-query launches
@@ -416,6 +418,39 @@ def packed_rows_bytes(F, labels, Vp: int, W: int) -> int:
     r, u = np.nonzero(F)
     labels = np.broadcast_to(np.asarray(labels), (F.shape[0],))
     return len(np.unique(labels[r].astype(np.int64) * Vp + u)) * W * 4
+
+
+def check_hub_cover(torch, eng) -> dict:
+    """One hub batch of the condensed build (``HUB_BATCH`` hubs, both
+    sides) through ``hub_cover`` against its plain version, over the AD
+    reach and random stacks of a build half done, then timed; the bound
+    reads both stacks and the hub operands at one bit an entry."""
+    from repro_torch.kernels import hub_cover, ref
+    C, n, _ = eng.reach.shape
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    R = torch.from_numpy(eng.reach).cuda()
+    RT = R.transpose(1, 2).contiguous()
+    aid = torch.randperm(n, generator=gen, device="cuda")
+    order = torch.argsort(aid)
+    OUT, IN = (hub_cover.pack_stack(torch.rand(
+        (C, n, n), generator=gen, device="cuda") < 0.002) for _ in range(2))
+    at, B = n // 2, HUB_BATCH
+    got = [OUT.clone(), IN.clone()]
+    hub_cover.hub_batch_step(*got, R, RT, aid, order, at, B)
+    want = [OUT.clone(), IN.clone()]
+    ref.hub_cover_ref(want[0], want[1], RT, aid, order[at:at + B])
+    ref.hub_cover_ref(want[1], want[0], R, aid, order[at:at + B])
+    err = max(compare("hub_cover", g, w) for g, w in zip(got, want))
+
+    def plain():
+        ref.hub_cover_ref(OUT, IN, RT, aid, order[at:at + B])
+        ref.hub_cover_ref(IN, OUT, R, aid, order[at:at + B])
+    return timed(
+        "hub_cover", err,
+        lambda: hub_cover.hub_batch_step(OUT, IN, R, RT, aid, order, at, B),
+        plain, None, 2 * C * n * n / 8 + 2 * C * n * B / 8,
+        4.0 * C * n * n * B, 2 * TENSOR_OPS_PER_S, 20,
+        f"C={C} n={n} B={B}, both sides (two launches)")
 
 
 def check_dense_kernels(torch, g, rng) -> dict:
@@ -2240,7 +2275,7 @@ def run_dry_run(torch, card, trained, kernels) -> dict:
         f"{run_s:.2f} s host clock with init (the plain run above "
         f"{plain_s:.2f} s, one step of it under FlopCounterMode)")
 
-    log(f"phase 14 launches of the seven kernels before the closure "
+    log(f"phase 14 launches of the eight kernels before the closure "
         f"timing: {sum(k.launches for k in kernels.values())} (the dry run "
         f"traces plain tensor code; the training path is plain torch ops)")
 
@@ -2501,7 +2536,8 @@ def main() -> int:
     log(card)
 
     t0 = time.perf_counter()
-    logs = _build.build(["mergejoin", "label_frontier", "bool_semiring"])
+    logs = _build.build(["mergejoin", "label_frontier", "bool_semiring",
+                         "hub_cover"])
     log(f"kernel build: {time.perf_counter() - t0:.2f} s")
     for src, text in logs.items():
         kernel = "?"
@@ -2678,7 +2714,12 @@ def main() -> int:
         return idx, csvc, cond_s, (qs, qt, qc), int(want.sum())
 
     (idx_c, svc_c, cond_s, big_q, n_true), cond_counts = counted(
-        torch, KERNELS, ("mergejoin",), condensed)
+        torch, KERNELS, ("mergejoin", "hub_cover"), condensed)
+    if cond_counts["hub_cover"] != 2 * -(-g.num_vertices // HUB_BATCH):
+        raise AssertionError(f"hub_cover launches {cond_counts}: not two "
+                             "a hub batch")
+    launches["hub_cover"] = cond_counts["hub_cover"]
+    results["hub_cover"] = check_hub_cover(torch, eng)
     log(f"build_condensed_device(hub_batch={HUB_BATCH}): {cond_s:.3f} s "
         f"(host clock), entries {idx_c.num_entries()} (Algorithm-2 index: "
         f"{svc.index.num_entries()}), row length E="
@@ -2686,7 +2727,8 @@ def main() -> int:
         f"sources x all targets x {C} MRs, {n_true} true) through the merge kernel equal "
         f"reach and the Algorithm-2 index; {len(queries)} served queries "
         f"from backend cuda, fallbacks 0, equal to the first service's; "
-        f"merge launches {cond_counts['mergejoin']}")
+        f"merge launches {cond_counts['mergejoin']}, hub_cover launches "
+        f"{cond_counts['hub_cover']}")
     # those two launches, timed alone (E = 40 and E = 80)
     for di, what in ((svc.device_index, "Algorithm-2 index"),
                      (svc_c.device_index, "condensed index")):
@@ -2737,7 +2779,7 @@ def main() -> int:
         kern.launches = 0
     run_model_serving(torch, card)
     torch.cuda.synchronize()
-    log(f"phase 12 launches of the seven kernels: "
+    log(f"phase 12 launches of the eight kernels: "
         f"{sum(k.launches for k in KERNELS.values())} (the model path has "
         f"no hand-written kernel: plain torch ops)")
 
@@ -2746,7 +2788,7 @@ def main() -> int:
         kern.launches = 0
     trained = run_model_training(torch, card)
     torch.cuda.synchronize()
-    log(f"phase 13 launches of the seven kernels: "
+    log(f"phase 13 launches of the eight kernels: "
         f"{sum(k.launches for k in KERNELS.values())} (the training path "
         f"has no hand-written kernel: plain torch ops and autograd)")
 
@@ -2774,6 +2816,7 @@ def main() -> int:
                          "src/repro/kernels/bool_semiring.py:84"),
         "bitpack_matmul": (csrc + "label_frontier.cu",
                            "src/repro/kernels/bitpack.py:64"),
+        "hub_cover": (csrc + "hub_cover.cu", None),
     }
     for name in ("mergejoin", "label_frontier"):
         results[name].setdefault("library_ms", None)

@@ -24,10 +24,17 @@ reference's ``max(R, matmul(R, R))`` in one launch. A caller-given
 ``matmul`` keeps float32 and the reference's form. The engine pads the
 adjacency once to a multiple of the kernel tile (zero rows and columns
 add no paths) and takes the doubling count from the unpadded ``n``, as
-the reference does. The coverage products of the condensed build stay
-``torch.bmm``, as the JAX package leaves them to XLA. All products sum
-0/1 values in float32, exact whether or not TF32 is on; PyTorch's
-default (TF32 off) is assumed and not changed here.
+the reference does. The condensed build's hub loop splits by device. On
+a CUDA device its entry stacks are bit-packed ``(C, n, W)`` int32 words
+and each hub batch is two launches of the hand-written coverage kernel
+of :mod:`repro_torch.kernels.hub_cover` (products, PR1/PR2 masks and new
+bits in one pass over a stack, one bit an entry), with the reach kept as
+uploaded bytes beside a transposed copy. On the CPU the stacks stay
+float32 and :func:`_hub_batch_step` runs the coverage products as
+``torch.bmm``, the form the JAX package leaves to XLA, and the plain
+ground truth of the kernel's path. All float products sum 0/1 values in
+float32, exact whether or not TF32 is on; PyTorch's default (TF32 off)
+is assumed and not changed here.
 
 Entry points take ``device="cuda"`` by default and raise where no card
 is present. ``DenseEngine.reach`` is a numpy ``(C, n, n)`` bool array, as
@@ -56,7 +63,7 @@ from repro_torch.core.graph import LabeledGraph
 from repro_torch.core.minimum_repeat import (LabelSeq, enumerate_mrs,
                                              mr_id_space)
 from repro_torch.core.rlc_index import RLCIndex
-from repro_torch.kernels import bool_semiring
+from repro_torch.kernels import bool_semiring, hub_cover
 from repro_torch.kernels.ref import bool_matmul_ref
 from repro_torch.obs import process_obs, region
 
@@ -232,25 +239,37 @@ def build_condensed_device(graph: LabeledGraph, k: int,
     if eng.reach.shape != (C, n, n):
         raise ValueError(f"reach must be ({C}, {n}, {n})")
     ctr = process_obs().build_counters("device_condensed")
+    packed = dev.type != "cpu"
     with region("condensed.prepare"):
         aid = graph.access_ids()
-        R = torch.from_numpy(np.ascontiguousarray(eng.reach)).to(dev).float()
-        OUT = torch.zeros((C, n, n), dtype=torch.float32, device=dev)
-        IN = torch.zeros((C, n, n), dtype=torch.float32, device=dev)
+        R = torch.from_numpy(np.ascontiguousarray(eng.reach)).to(dev)
         aid_t = torch.from_numpy(aid.astype(np.int64)).to(dev)
         order = torch.from_numpy(graph.access_order().astype(np.int64)).to(
             dev)
+        if packed:
+            OUT, IN = (hub_cover.zero_stack(C, n, dev) for _ in range(2))
+            RT = R.transpose(1, 2).contiguous()
+        else:
+            R = R.float()
+            OUT = torch.zeros((C, n, n), dtype=torch.float32, device=dev)
+            IN = torch.zeros((C, n, n), dtype=torch.float32, device=dev)
     with region("condensed.hub_loop"):
-        for i in range(0, n, hub_batch):
-            _hub_batch_step(OUT, IN, R, aid_t, order[i:i + hub_batch])
+        if packed:
+            hub_cover.hub_loop(OUT, IN, R, RT, aid_t, order, hub_batch)
+            del RT
+        else:
+            for i in range(0, n, hub_batch):
+                _hub_batch_step(OUT, IN, R, aid_t, order[i:i + hub_batch])
     del R
     with region("condensed.index_fill"):
         idx = RLCIndex(n, k, aid)
     for entries, add, count in ((OUT, idx.add_out, ctr.entries_out),
                                 (IN, idx.add_in, ctr.entries_in)):
         with region("condensed.download"):
+            bits = hub_cover.unpack_stack(entries) if packed else entries > 0
             cs, ys, xs = (t.cpu().numpy() for t in torch.nonzero(
-                entries > 0, as_tuple=True))
+                bits, as_tuple=True))
+            del bits
         count.inc(len(cs))
         with region("condensed.index_fill"):
             for c, y, x in zip(cs.tolist(), ys.tolist(), xs.tolist()):

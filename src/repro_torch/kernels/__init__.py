@@ -7,7 +7,8 @@ kernel surface and ``_build.py`` the ``nvcc`` build and ``ctypes``
 binding. A wrapper given CPU tensors runs the plain version; given CUDA
 tensors it launches its kernel or raises.
 """
-from . import bitpack, bool_semiring, label_frontier, mergejoin, ops, ref
+from . import (bitpack, bool_semiring, hub_cover, label_frontier, mergejoin,
+               ops, ref)
 
 #: every kernel entry point of the package, by name (``launches`` counts
 #: each)
@@ -17,7 +18,8 @@ KERNELS = {"mergejoin": mergejoin.KERNEL,
            "frontier_step": label_frontier.STEP_KERNEL,
            "bool_matmul": bool_semiring.MATMUL_KERNEL,
            "closure_step": bool_semiring.CLOSURE_KERNEL,
-           "bitpack_matmul": bitpack.KERNEL}
+           "bitpack_matmul": bitpack.KERNEL,
+           "hub_cover": hub_cover.KERNEL}
 
-__all__ = ["KERNELS", "bitpack", "bool_semiring", "label_frontier",
-           "mergejoin", "ops", "ref"]
+__all__ = ["KERNELS", "bitpack", "bool_semiring", "hub_cover",
+           "label_frontier", "mergejoin", "ops", "ref"]

@@ -131,3 +131,46 @@ def frontier_step_many_ref(frontier: torch.Tensor, A_packed: torch.Tensor,
         dense = unpack_bits(A_packed[lab])
         out[rows] = pack_bits(frontier[rows] @ dense)
     return out
+
+
+def _bit(words: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
+    """Bit ``pos & 31`` of int32 ``words``, as bool (broadcasting)."""
+    return ((words >> (pos & 31).to(torch.int32)) & 1).bool()
+
+
+def hub_cover_ref(rows: torch.Tensor, other: torch.Tensor,
+                  reach: torch.Tensor, aid: torch.Tensor, hubs: torch.Tensor
+                  ) -> None:
+    """One side of a hub batch of the condensed build on bit-packed entry
+    stacks, updating ``rows`` in place.
+
+    rows, other: ``(C, n, W)`` int32 words (bit ``j`` of word ``w`` is
+    column ``32 * w + j``); reach: ``(C, n, n)`` 0/1, read at ``[c, h,
+    y]``; aid: ``(n,)`` access ids; hubs: ``(B,)`` distinct vertex ids.
+    For every row ``(c, y)`` and hub ``h``, every test against the rows as
+    they were before the batch::
+
+        cov1 = OR_x rows[c, y, x] & other[c, h, x]
+        cov2 = bit h of rows[c, y];  cov3 = bit y of other[c, h]
+        add  = reach[c, h, y] & aid[h] <= aid[y] & ~(cov1 | cov2 | cov3)
+
+    and bit ``h`` of ``rows[c, y]`` is set where ``add`` holds. With
+    ``(rows, other, reach) = (OUT, IN, R transposed)`` this is the backward
+    side of :func:`repro_torch.core.dense._hub_batch_step`, with ``(IN,
+    OUT, R)`` its forward side."""
+    n = rows.shape[1]
+    hubs = hubs.long()
+    oh = other[:, hubs, :]                                   # (C, B, W)
+    cov1 = torch.stack([(rows & oh[:, b:b + 1, :]).ne(0).any(-1)
+                        for b in range(len(hubs))], dim=-1)  # (C, n, B)
+    cov2 = _bit(rows[:, :, hubs >> 5], hubs)                 # (C, n, B)
+    y = torch.arange(n, device=rows.device)
+    cov3 = _bit(oh[:, :, y >> 5], y).transpose(1, 2)         # (C, n, B)
+    to_h = reach[:, hubs, :].transpose(1, 2) != 0            # (C, n, B)
+    pr2 = aid[hubs][None, :] <= aid[:, None]                 # (n, B)
+    add = to_h & pr2[None] & ~(cov1 | cov2 | cov3)
+    for b, h in enumerate(hubs.tolist()):
+        bit = 1 << (h & 31)
+        rows[:, :, h >> 5] |= torch.where(
+            add[:, :, b], bit - 2 ** 32 if bit >= 2 ** 31 else bit,
+            0).to(torch.int32)

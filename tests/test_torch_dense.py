@@ -176,6 +176,7 @@ def test_dense_engine_checks_its_arguments():
 
 
 def test_cpu_dense_path_never_launches():
+    assert "hub_cover" in KERNELS       # the condensed build's kernel
     before = {k: v.launches for k, v in KERNELS.items()}
     g = random_labeled_graph(seed=1, **G12_BUILD)
     tdense.build_condensed_device(g, 2, hub_batch=4, device="cpu")
@@ -213,11 +214,18 @@ def test_cuda_dense_engine_matches_cpu(k):
 
 
 @needs_cuda
-@pytest.mark.parametrize("hub_batch", [1, 8])
+@pytest.mark.parametrize("hub_batch", [1, 8, 40])
 def test_cuda_condensed_build_matches_cpu(hub_batch):
+    """The card's build (bit-packed stacks, two ``hub_cover`` launches a
+    hub batch) gives the CPU build's entries exactly."""
     g = random_labeled_graph(num_vertices=150, num_edges=400, num_labels=2,
                              seed=4)
-    got, eng = tdense.build_condensed_device(g, 2, hub_batch=hub_batch)
+    eng = tdense.DenseEngine.build(g, 2)
+    before = KERNELS["hub_cover"].launches
+    got, _ = tdense.build_condensed_device(g, 2, hub_batch=hub_batch,
+                                           reach=eng.reach)
+    assert KERNELS["hub_cover"].launches == \
+        before + 2 * -(-150 // hub_batch)
     want, _ = tdense.build_condensed_device(g, 2, hub_batch=hub_batch,
                                             reach=eng.reach, device="cpu")
     assert entries(got) == entries(want)
