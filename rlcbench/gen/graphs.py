@@ -7,12 +7,22 @@ A copy of the directed Barabasi-Albert recipe with Zipfian edge labels
 It returns a plain ``(m, 3)`` int32 array of ``(src, label, dst)`` rows;
 the harness hands it to the program through ``LabeledGraph.from_edges``
 and to the reference as it is.
+
+A configuration names its recipe under ``graph.generator``: one of
+``GENERATORS`` here, or else the file ``rlcbench/gen/<generator>.py``,
+whose ``generate(seed=..., **params)`` returns such rows. A new recipe is
+a new file there; this one does not change for it.
 """
 from __future__ import annotations
 
-from typing import Mapping
+import re
+from pathlib import Path
+from typing import Callable, Mapping
 
 import numpy as np
+
+HERE = Path(__file__).resolve().parent
+RECIPE_NAME = re.compile(r"[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}")
 
 
 def zipf_labels(num_edges: int, num_labels: int, rng: np.random.Generator,
@@ -63,9 +73,22 @@ def barabasi_albert(num_vertices: int, m_attach: int, num_labels: int,
 GENERATORS = {"barabasi_albert": barabasi_albert}
 
 
+def recipe(name: str) -> Callable[..., np.ndarray]:
+    """The recipe ``name``: ``GENERATORS[name]``, else the ``generate`` of
+    ``rlcbench/gen/<name>.py``."""
+    if name in GENERATORS:
+        return GENERATORS[name]
+    path = HERE / f"{name}.py"
+    if not RECIPE_NAME.fullmatch(name) or not path.is_file():
+        raise KeyError(f"no graph recipe {name!r}: not in GENERATORS and "
+                       f"no rlcbench/gen/{name}.py")
+    from rlcbench import harness
+    return harness._load(path).generate
+
+
 def make_edges(graph_cfg: Mapping, seed: int) -> np.ndarray:
     """The edge rows of a configuration's ``graph`` recipe for ``seed``
     (any whole number; folded into numpy's unsigned 64-bit seed)."""
     cfg = dict(graph_cfg)
-    gen = GENERATORS[cfg.pop("generator")]
+    gen = recipe(cfg.pop("generator"))
     return gen(seed=int(seed) % 2 ** 64, **cfg)

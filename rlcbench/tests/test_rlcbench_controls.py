@@ -1,7 +1,12 @@
 """The check fails what it has to fail: each control (the reference in the
 program's place with a guarantee broken), and each fault planted in the
 program underneath a whole run, at a size a CPU test run holds. A
-cell has one chip, so no exchange between chips can be left out."""
+cell has one chip, so no exchange between chips can be left out.
+
+The cases are found by each cell's entry point: its ``CONTROLS`` in
+``rlcbench/entrypoints/<entry>.py`` and its ``FAULTS`` in
+``rlcbench/tests/faults/<entry>.py``. An entry point without them gets one
+failing case of its own, never an error that stops collection."""
 import numpy as np
 import pytest
 
@@ -12,14 +17,69 @@ from rlcbench.tests.conftest import tiny  # noqa: E402
 
 BENCH = harness.load_benchmark()
 CELLS = [w["name"] for w in BENCH["workloads"]]
+FAULTS_DIR = harness.HERE / "tests" / "faults"
 
 
-def controls_of(cell):
-    return harness.load_entrypoint(cell.traffic["entry"]).CONTROLS
+def entry_of(workload):
+    return harness.resolve(BENCH, workload).traffic["entry"]
 
 
-CONTROL_CASES = [(w, name) for w in CELLS
-                 for name in controls_of(harness.resolve(BENCH, w))]
+def controls_of(entry):
+    return list(harness.load_entrypoint(entry).CONTROLS)
+
+
+def faults_of(entry):
+    """The ``FAULTS`` of ``rlcbench/tests/faults/<entry>.py``."""
+    return list(harness._load(FAULTS_DIR / f"{entry}.py").FAULTS)
+
+
+def entries_of(cells):
+    """Each cell's entry point; a cell whose entry cannot be read stands
+    under its own name (its harness tests say why)."""
+    found = {}
+    for w in cells:
+        try:
+            found[w] = entry_of(w)
+        except (OSError, KeyError, ValueError, StopIteration):
+            found[w] = w
+    return found
+
+
+def cases(find, entries):
+    """``(workload, item)`` for each cell of ``entries`` (cell -> entry
+    point) and each item ``find`` gives for its entry point; and, by entry
+    point, why ``find`` gave none. Nothing raises here, since collection
+    would stop: a missing file, name or list is reported by
+    ``test_each_entry_brings_its_controls_and_faults``."""
+    found, missing = [], {}
+    for w, entry in entries.items():
+        try:
+            items = find(entry)
+        except Exception as e:  # reported by a case, never raised
+            items, missing[entry] = [], f"{find.__name__}: {e!r}"
+        if not items:
+            missing.setdefault(entry, f"{find.__name__}: none")
+        found += [(w, item) for item in items]
+    return found, missing
+
+
+ENTRIES = entries_of(CELLS)
+CONTROL_CASES, NO_CONTROLS = cases(controls_of, ENTRIES)
+FAULT_CASES, NO_FAULTS = cases(faults_of, ENTRIES)
+
+
+@pytest.mark.parametrize("entry", sorted(set(ENTRIES.values())))
+def test_each_entry_brings_its_controls_and_faults(entry):
+    missing = [m[entry] for m in (NO_CONTROLS, NO_FAULTS) if entry in m]
+    assert not missing, f"entry point {entry!r}: {missing}"
+
+
+def test_an_entry_without_its_files_is_one_failing_case():
+    entries = {"cell-a": "no_such_entry", "cell-b": "no_such_entry"}
+    for find in (controls_of, faults_of):
+        found, missing = cases(find, entries)
+        assert found == [] and list(missing) == ["no_such_entry"]
+        assert missing["no_such_entry"].startswith(find.__name__)
 
 
 @pytest.mark.parametrize("workload,control", CONTROL_CASES)
@@ -31,94 +91,6 @@ def test_control_comes_out_not_correct(workload, control):
     for r in readings:
         assert r["correct"] is False
         assert max(c["value"] for c in r["checks"].values()) > 0
-
-
-def closure_returns_its_state(monkeypatch):
-    """A doubling step that hands back its input: every reach is its MR's
-    one-step matrix."""
-    from repro_torch.kernels import bool_semiring
-
-    def step(r, out=None):
-        return r.clone() if out is None else out.copy_(r)
-    monkeypatch.setattr(bool_semiring, "closure_step", step)
-
-
-def half_the_mrs(monkeypatch):
-    """The reach of the second half of the MRs left out (all zero)."""
-    from repro_torch.core import dense
-    real = dense._all_mr_reach
-
-    def reach(A, mrs, n, matmul=None):
-        R = real(A, mrs, n, matmul)
-        R[len(mrs) // 2:] = 0
-        return R
-    monkeypatch.setattr(dense, "_all_mr_reach", reach)
-
-
-def one_reach_bit_flipped(monkeypatch):
-    """The reach stack handed back with one cell altered."""
-    from repro_torch.core import dense
-    real = dense.DenseEngine.build
-
-    def build(*args, **kwargs):
-        eng = real(*args, **kwargs)
-        eng.reach[0, 0, 1] = not eng.reach[0, 0, 1]
-        return eng
-    monkeypatch.setattr(dense.DenseEngine, "build", staticmethod(build))
-
-
-def an_mr_too_many(monkeypatch):
-    """The reach handed back with one word more in its MR list, a power
-    of a shorter word (no MR), over an all-false slice."""
-    from repro_torch.core import dense
-    real = dense.DenseEngine.build
-
-    def build(*args, **kwargs):
-        eng = real(*args, **kwargs)
-        eng.mrs = list(eng.mrs) + [(0, 0)]
-        eng.reach = np.concatenate([eng.reach,
-                                    np.zeros_like(eng.reach[:1])])
-        return eng
-    monkeypatch.setattr(dense.DenseEngine, "build", staticmethod(build))
-
-
-def hub_step_returns_its_state(monkeypatch):
-    """A hub batch that adds nothing to the entry stacks."""
-    from repro_torch.core import dense
-    monkeypatch.setattr(dense, "_hub_batch_step", lambda *a: None)
-
-
-def half_of_each_hub_batch(monkeypatch):
-    """Each hub batch with its second half of hubs left out."""
-    from repro_torch.core import dense
-    real = dense._hub_batch_step
-
-    def step(OUT, IN, R, aid, hubs):
-        real(OUT, IN, R, aid, hubs[:max(1, len(hubs) // 2)])
-    monkeypatch.setattr(dense, "_hub_batch_step", step)
-
-
-def one_entry_altered(monkeypatch):
-    """The first ``L_out`` entry of each index recorded at the wrong hub."""
-    from repro_torch.core.rlc_index import RLCIndex
-    real = RLCIndex.add_out
-
-    def add_out(self, v, hub, mr):
-        if not getattr(self, "_altered", False):
-            self._altered = True
-            hub = (hub + 1) % self.num_vertices
-        real(self, v, hub, mr)
-    monkeypatch.setattr(RLCIndex, "add_out", add_out)
-
-
-FAULTS = {
-    "dense_engine": [closure_returns_its_state, half_the_mrs,
-                     one_reach_bit_flipped, an_mr_too_many],
-    "condensed": [closure_returns_its_state, hub_step_returns_its_state,
-                  half_of_each_hub_batch, one_entry_altered],
-}
-FAULT_CASES = [(w, f) for w in CELLS
-               for f in FAULTS[harness.resolve(BENCH, w).traffic["entry"]]]
 
 
 @pytest.mark.parametrize("workload,fault", FAULT_CASES,

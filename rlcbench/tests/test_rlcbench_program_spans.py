@@ -1,6 +1,6 @@
 """The condensed build's span and counter readers (``program_spans.py`` and
-the four ``metrics/*.rlc.py`` that use it) on hand-made traces, and the
-names they read against the names the program opens."""
+the four ``metrics/*.rlc.py`` that use it) on hand-made traces, the names
+they read against the names the program opens, and the cells they list."""
 import math
 import re
 from pathlib import Path
@@ -164,4 +164,17 @@ def test_the_program_opens_the_names_the_readers_read():
     new = [m for m in bench["per_layer"] if m["name"] in NEW]
     assert [m["name"] for m in new] == list(NEW)
     assert all(m["layer"] == "condensed build" and m["moves"] == "build_s.rlc"
-               and m["workloads"] == list(RLC_CELLS) for m in new)
+               for m in new)
+
+
+def test_span_metrics_keep_their_cells_and_read_only_rlc_builds():
+    """Each span metric lists the two Advogato rlc cells and no cell that
+    does not report ``build_s.rlc``: a cell may be added to the lists, and
+    none taken away."""
+    bench = harness.load_benchmark(ROOT)
+    builds = next(m for m in bench["end_to_end"]
+                  if m["name"] == "build_s.rlc")["workloads"]
+    for m in bench["per_layer"]:
+        if m["name"] in NEW:
+            assert set(RLC_CELLS) <= set(m["workloads"]) <= set(builds), \
+                m["name"]
