@@ -8,6 +8,8 @@ computation into boolean matrix-matrix products. This module provides:
 * ``mr_step_matrix``   — ``M_L = A[l1] (x) ... (x) A[lm]`` (OR-AND chain);
 * ``plus_closure``     — ``M^+`` by log-doubling (``h <= |V|`` repeats);
 * ``DenseEngine``      — ETC-equivalent all-pairs ``S^k`` oracle on device;
+* ``device_reach``     — the same all-MR reach kept on the device as one
+  bool stack, built MR by MR;
 * ``build_condensed_device`` — hub-batched pruned 2-hop labeling: the
   paper's Algorithm 2 re-derived as masked matmuls (PR2 is the aid mask,
   PR1 a vectorized coverage query, one matmul per hub batch; batch size 1
@@ -38,22 +40,27 @@ is assumed and not changed here.
 
 Entry points take ``device="cuda"`` by default and raise where no card
 is present. ``DenseEngine.reach`` is a numpy ``(C, n, n)`` bool array, as
-in the JAX package.
+in the JAX package. :func:`device_reach` gives the same reach as a bool
+tensor that stays on the device, and ``build_condensed_device`` takes it
+there with no copy through the host.
 
 Both builds name their phases on ``torch.profiler``'s timeline while it
 records (:func:`repro_torch.obs.region`: ``repro_torch.dense.adjacency``,
 ``.reach``, ``.download``; ``repro_torch.condensed.prepare``,
-``.hub_loop``, then per side ``.download`` and ``.index_fill``). The
-condensed build counts its runs and the entries it hands to the
-``RLCIndex`` in :func:`repro_torch.obs.process_obs`'s registry
+``.hub_loop``, then per side ``.download`` and ``.index_fill``);
+:func:`device_reach` opens the first two. The condensed build counts its
+runs, the entries it hands to the ``RLCIndex`` and the bytes it copies
+between host and device in :func:`repro_torch.obs.process_obs`'s registry
 (:class:`~repro_torch.obs.BuildCounters`, backend ``device_condensed``).
 Neither adds a wait or a device allocation.
 """
 from __future__ import annotations
 
+import gc
 import math
+from contextlib import contextmanager
 from dataclasses import dataclass
-from typing import Callable, Dict, Optional, Sequence, Tuple
+from typing import Callable, Dict, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -144,6 +151,7 @@ class DenseEngine:
     mrs: Tuple[LabelSeq, ...]
     mr_ids: Dict[LabelSeq, int]
     reach: np.ndarray  # (C, n, n) bool — reach[c, u, v] = u ~~mr_c^+~~> v
+    # (a device tensor where build_condensed_device was handed one)
 
     @staticmethod
     def build(graph: LabeledGraph, k: int,
@@ -175,6 +183,29 @@ class DenseEngine:
 
     def num_true_pairs(self) -> int:
         return int(self.reach.sum())
+
+
+def device_reach(graph: LabeledGraph, k: int, device="cuda"
+                 ) -> Tuple[Tuple[LabelSeq, ...], torch.Tensor]:
+    """``(mrs, R)``: the reach of :meth:`DenseEngine.build` as a contiguous
+    ``(C, n, n)`` bool tensor that stays on ``device``. Each MR runs
+    through the same bf16 products (:func:`mr_step_matrix`,
+    :func:`plus_closure`) and is written into ``R`` before the next one
+    starts, so the device holds ``R``, the adjacency and one MR's buffers
+    at a time, never the stack of closures that ``DenseEngine.build``
+    keeps before its download."""
+    dev = resolve_device(device)
+    n = graph.num_vertices
+    mrs = enumerate_mrs(graph.num_labels, k)
+    with region("dense.adjacency"):
+        A = label_adjacency(graph, dev, torch.bfloat16)
+    R = torch.empty((len(mrs), n, n), dtype=torch.bool, device=dev)
+    with region("dense.reach"):
+        for c, mr in enumerate(mrs):
+            closure = plus_closure(mr_step_matrix(A, mr), n_iters=_n_iters(n))
+            R[c] = closure[:n, :n] > 0
+            del closure
+    return mrs, R
 
 
 # ------------------------------------------------------------------ #
@@ -218,16 +249,35 @@ def _hub_batch_step(OUT: torch.Tensor, IN: torch.Tensor, R: torch.Tensor,
     IN[:, :, hubs] = torch.maximum(IN[:, :, hubs], cand_in)
 
 
+@contextmanager
+def _collector_paused():
+    """Python's cyclic garbage collector off inside the block, and on again
+    after it where it was on before. The index fill makes a set or dict
+    for nearly every entry, millions at a time, and no reference cycle;
+    with the collector on, its passes over the growing index can take
+    longer than the fill itself."""
+    was_on = gc.isenabled()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if was_on:
+            gc.enable()
+
+
 def build_condensed_device(graph: LabeledGraph, k: int,
                            hub_batch: int = 1,
                            matmul: Optional[MatMul] = None,
-                           reach: Optional[np.ndarray] = None,
+                           reach: Optional[Union[np.ndarray,
+                                                 torch.Tensor]] = None,
                            device="cuda") -> Tuple[RLCIndex, DenseEngine]:
     """Device-side condensed RLC index build (see module docstring).
 
-    ``reach`` (a :attr:`DenseEngine.reach`) skips the engine build. Only
-    the non-zero ``(c, y, x)`` triples of the entry matrices leave the
-    device."""
+    ``reach`` skips the engine build: a :attr:`DenseEngine.reach`, which
+    the build copies to the device, or the bool tensor of
+    :func:`device_reach` on the build's device, which it reads where it
+    lies (the returned engine then holds that tensor). Only the non-zero
+    ``(c, y, x)`` triples of the entry matrices leave the device."""
     dev = resolve_device(device)
     if hub_batch < 1:
         raise ValueError(f"hub_batch must be >= 1, not {hub_batch}")
@@ -236,13 +286,24 @@ def build_condensed_device(graph: LabeledGraph, k: int,
            if reach is not None
            else DenseEngine.build(graph, k, matmul, device=dev))
     n, C = graph.num_vertices, len(eng.mrs)
-    if eng.reach.shape != (C, n, n):
+    if tuple(eng.reach.shape) != (C, n, n):
         raise ValueError(f"reach must be ({C}, {n}, {n})")
+    on_device = isinstance(eng.reach, torch.Tensor)
+    if on_device and (eng.reach.dtype != torch.bool
+                      or not eng.reach.is_contiguous()
+                      or eng.reach.device.type != dev.type
+                      or dev.index not in (None, eng.reach.device.index)):
+        raise ValueError(f"a reach tensor must be a contiguous bool tensor "
+                         f"on {dev}")
     ctr = process_obs().build_counters("device_condensed")
     packed = dev.type != "cpu"
     with region("condensed.prepare"):
         aid = graph.access_ids()
-        R = torch.from_numpy(np.ascontiguousarray(eng.reach)).to(dev)
+        if on_device:
+            R = eng.reach
+        else:
+            R = torch.from_numpy(np.ascontiguousarray(eng.reach)).to(dev)
+            ctr.host_bytes_up.inc(R.nbytes)
         aid_t = torch.from_numpy(aid.astype(np.int64)).to(dev)
         order = torch.from_numpy(graph.access_order().astype(np.int64)).to(
             dev)
@@ -263,16 +324,19 @@ def build_condensed_device(graph: LabeledGraph, k: int,
     del R
     with region("condensed.index_fill"):
         idx = RLCIndex(n, k, aid)
-    for entries, add, count in ((OUT, idx.add_out, ctr.entries_out),
-                                (IN, idx.add_in, ctr.entries_in)):
-        with region("condensed.download"):
-            bits = hub_cover.unpack_stack(entries) if packed else entries > 0
-            cs, ys, xs = (t.cpu().numpy() for t in torch.nonzero(
-                bits, as_tuple=True))
-            del bits
-        count.inc(len(cs))
-        with region("condensed.index_fill"):
-            for c, y, x in zip(cs.tolist(), ys.tolist(), xs.tolist()):
-                add(y, x, eng.mrs[c])
+    with _collector_paused():
+        for entries, add, count in ((OUT, idx.add_out, ctr.entries_out),
+                                    (IN, idx.add_in, ctr.entries_in)):
+            with region("condensed.download"):
+                bits = hub_cover.unpack_stack(entries) if packed \
+                    else entries > 0
+                cs, ys, xs = (t.cpu().numpy() for t in torch.nonzero(
+                    bits, as_tuple=True))
+                del bits
+            count.inc(len(cs))
+            ctr.host_bytes_down.inc(cs.nbytes + ys.nbytes + xs.nbytes)
+            with region("condensed.index_fill"):
+                for c, y, x in zip(cs.tolist(), ys.tolist(), xs.tolist()):
+                    add(y, x, eng.mrs[c])
     ctr.runs.inc()
     return idx, eng

@@ -156,10 +156,14 @@ class BuildCounters:
 
     * ``rlc_build_runs{context="full"}``: builds completed (the series
       :meth:`BuildPhaseObserver.build_done` counts other backends in);
-    * ``rlc_build_entries{side}``: entries handed to the ``RLCIndex``.
+    * ``rlc_build_entries{side}``: entries handed to the ``RLCIndex``;
+    * ``rlc_build_host_bytes{direction}``: bytes copied between host and
+      device, ``up`` the reach handed over as a host array, ``down`` the
+      entries' coordinates.
     """
 
-    __slots__ = ("runs", "entries_out", "entries_in")
+    __slots__ = ("runs", "entries_out", "entries_in", "host_bytes_up",
+                 "host_bytes_down")
 
     def __init__(self, registry, backend: str):
         self.runs = registry.counter(
@@ -172,3 +176,10 @@ class BuildCounters:
             labelnames=("backend", "side"))
         self.entries_out = entries.labels(backend=backend, side="out")
         self.entries_in = entries.labels(backend=backend, side="in")
+        host = registry.counter(
+            "rlc_build_host_bytes",
+            desc="bytes a device build copied between host and device",
+            unit="By", labelnames=("backend", "direction"))
+        self.host_bytes_up = host.labels(backend=backend, direction="up")
+        self.host_bytes_down = host.labels(backend=backend,
+                                           direction="down")
