@@ -39,8 +39,10 @@ points a user calls:
 7. the dense path: ``DenseEngine.build`` on the card (bf16 stacks, every
    product through the semiring kernels; its ``reach`` must equal the
    plain path's), ``build_condensed_device`` at ``hub_batch = 8`` (two
-   ``hub_cover`` launches a hub batch, then that kernel held against its
-   plain version on one batch over the AD reach, and timed) and an
+   ``hub_cover`` launches a hub batch and two ``entry_masks`` launches a
+   build, then each kernel held against its plain version, ``hub_cover``
+   on one batch over the AD reach and ``entry_masks`` on a stack of the
+   AD shape, and timed) and an
    ``RLCService`` over the condensed index, whose answers to 64 sources x
    all targets x all MRs, through the merge kernel, must equal ``reach``
    and the step-3 index's answers; those two 3,767,616-query launches
@@ -451,6 +453,25 @@ def check_hub_cover(torch, eng) -> dict:
         plain, None, 2 * C * n * n / 8 + 2 * C * n * B / 8,
         4.0 * C * n * n * B, 2 * TENSOR_OPS_PER_S, 20,
         f"C={C} n={n} B={B}, both sides (two launches)")
+
+
+def check_entry_masks(torch, eng) -> dict:
+    """One packed entry stack of the AD shape (random bits at a built
+    stack's density) through ``entry_masks`` against its plain version,
+    then timed; the bound reads the stack and writes the masks once."""
+    from repro_torch.kernels import hub_cover, ref
+    C, n, _ = eng.reach.shape
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    words = hub_cover.pack_stack(torch.rand((C, n, n), generator=gen,
+                                            device="cuda") < 0.002)
+    got = hub_cover.entry_masks(words)
+    if not torch.equal(got, ref.entry_masks_ref(words)):
+        raise AssertionError("entry_masks differs from its plain version")
+    return timed(
+        "entry_masks", 0.0, lambda: hub_cover.entry_masks(words),
+        lambda: ref.entry_masks_ref(words), None,
+        4 * words.numel() + 8 * got.numel(), 0.0, CUDA_CORE_OPS_PER_S, 20,
+        f"C={C} n={n} W={words.shape[-1]}, one stack")
 
 
 def check_dense_kernels(torch, g, rng) -> dict:
@@ -2275,7 +2296,7 @@ def run_dry_run(torch, card, trained, kernels) -> dict:
         f"{run_s:.2f} s host clock with init (the plain run above "
         f"{plain_s:.2f} s, one step of it under FlopCounterMode)")
 
-    log(f"phase 14 launches of the eight kernels before the closure "
+    log(f"phase 14 launches of the nine kernels before the closure "
         f"timing: {sum(k.launches for k in kernels.values())} (the dry run "
         f"traces plain tensor code; the training path is plain torch ops)")
 
@@ -2714,12 +2735,16 @@ def main() -> int:
         return idx, csvc, cond_s, (qs, qt, qc), int(want.sum())
 
     (idx_c, svc_c, cond_s, big_q, n_true), cond_counts = counted(
-        torch, KERNELS, ("mergejoin", "hub_cover"), condensed)
-    if cond_counts["hub_cover"] != 2 * -(-g.num_vertices // HUB_BATCH):
-        raise AssertionError(f"hub_cover launches {cond_counts}: not two "
-                             "a hub batch")
-    launches["hub_cover"] = cond_counts["hub_cover"]
+        torch, KERNELS, ("mergejoin", "hub_cover", "entry_masks"),
+        condensed)
+    if cond_counts["hub_cover"] != 2 * -(-g.num_vertices // HUB_BATCH) \
+            or cond_counts["entry_masks"] != 2:
+        raise AssertionError(f"launches {cond_counts}: not two hub_cover "
+                             "a hub batch and two entry_masks a build")
+    for name in ("hub_cover", "entry_masks"):
+        launches[name] = cond_counts[name]
     results["hub_cover"] = check_hub_cover(torch, eng)
+    results["entry_masks"] = check_entry_masks(torch, eng)
     log(f"build_condensed_device(hub_batch={HUB_BATCH}): {cond_s:.3f} s "
         f"(host clock), entries {idx_c.num_entries()} (Algorithm-2 index: "
         f"{svc.index.num_entries()}), row length E="
@@ -2728,7 +2753,8 @@ def main() -> int:
         f"reach and the Algorithm-2 index; {len(queries)} served queries "
         f"from backend cuda, fallbacks 0, equal to the first service's; "
         f"merge launches {cond_counts['mergejoin']}, hub_cover launches "
-        f"{cond_counts['hub_cover']}")
+        f"{cond_counts['hub_cover']}, entry_masks launches "
+        f"{cond_counts['entry_masks']}")
     # those two launches, timed alone (E = 40 and E = 80)
     for di, what in ((svc.device_index, "Algorithm-2 index"),
                      (svc_c.device_index, "condensed index")):
@@ -2779,7 +2805,7 @@ def main() -> int:
         kern.launches = 0
     run_model_serving(torch, card)
     torch.cuda.synchronize()
-    log(f"phase 12 launches of the eight kernels: "
+    log(f"phase 12 launches of the nine kernels: "
         f"{sum(k.launches for k in KERNELS.values())} (the model path has "
         f"no hand-written kernel: plain torch ops)")
 
@@ -2788,7 +2814,7 @@ def main() -> int:
         kern.launches = 0
     trained = run_model_training(torch, card)
     torch.cuda.synchronize()
-    log(f"phase 13 launches of the eight kernels: "
+    log(f"phase 13 launches of the nine kernels: "
         f"{sum(k.launches for k in KERNELS.values())} (the training path "
         f"has no hand-written kernel: plain torch ops and autograd)")
 
@@ -2817,6 +2843,7 @@ def main() -> int:
         "bitpack_matmul": (csrc + "label_frontier.cu",
                            "src/repro/kernels/bitpack.py:64"),
         "hub_cover": (csrc + "hub_cover.cu", None),
+        "entry_masks": (csrc + "hub_cover.cu", None),
     }
     for name in ("mergejoin", "label_frontier"):
         results[name].setdefault("library_ms", None)

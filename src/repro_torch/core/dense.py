@@ -49,8 +49,9 @@ records (:func:`repro_torch.obs.region`: ``repro_torch.dense.adjacency``,
 ``.reach``, ``.download``; ``repro_torch.condensed.prepare``,
 ``.hub_loop``, then per side ``.download`` and ``.index_fill``);
 :func:`device_reach` opens the first two. The condensed build counts its
-runs, the entries it hands to the ``RLCIndex`` and the bytes it copies
-between host and device in :func:`repro_torch.obs.process_obs`'s registry
+runs, the entries and ``(vertex, hub)`` keys it hands to the ``RLCIndex``
+and the bytes it copies between host and device in
+:func:`repro_torch.obs.process_obs`'s registry
 (:class:`~repro_torch.obs.BuildCounters`, backend ``device_condensed``).
 Neither adds a wait or a device allocation.
 """
@@ -265,6 +266,19 @@ def _collector_paused():
             gc.enable()
 
 
+def _entry_pairs(words: torch.Tensor
+                 ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """The ``(vertex, hub)`` cells of a packed entry stack that hold an
+    entry, on the host: int32 vertices and hubs ``(P,)`` in row-major order
+    (by vertex, hubs ascending) and their int64 MR masks ``(P, M)``
+    (:func:`repro_torch.kernels.hub_cover.entry_masks`). Only those cells
+    leave the device, ``8 + 8 M`` bytes each."""
+    masks = hub_cover.entry_masks(words)
+    ys, xs = torch.nonzero(masks.ne(0).any(-1), as_tuple=True)
+    return (ys.int().cpu().numpy(), xs.int().cpu().numpy(),
+            masks[ys, xs].cpu().numpy())
+
+
 def build_condensed_device(graph: LabeledGraph, k: int,
                            hub_batch: int = 1,
                            matmul: Optional[MatMul] = None,
@@ -276,8 +290,12 @@ def build_condensed_device(graph: LabeledGraph, k: int,
     ``reach`` skips the engine build: a :attr:`DenseEngine.reach`, which
     the build copies to the device, or the bool tensor of
     :func:`device_reach` on the build's device, which it reads where it
-    lies (the returned engine then holds that tensor). Only the non-zero
-    ``(c, y, x)`` triples of the entry matrices leave the device."""
+    lies (the returned engine then holds that tensor). Only the entries
+    leave the device: on the card the ``(vertex, hub)`` cells that hold
+    one, each with its MRs as one mask (:func:`_entry_pairs`), and each
+    side's rows are filled by :meth:`RLCIndex.fill_rows`; on the CPU the
+    non-zero ``(c, y, x)`` triples, one ``add_out`` / ``add_in`` each, the
+    plain ground truth of the card's fill."""
     dev = resolve_device(device)
     if hub_batch < 1:
         raise ValueError(f"hub_batch must be >= 1, not {hub_batch}")
@@ -325,18 +343,23 @@ def build_condensed_device(graph: LabeledGraph, k: int,
     with region("condensed.index_fill"):
         idx = RLCIndex(n, k, aid)
     with _collector_paused():
-        for entries, add, count in ((OUT, idx.add_out, ctr.entries_out),
-                                    (IN, idx.add_in, ctr.entries_in)):
+        for side, entries, maps, add in (("out", OUT, idx.l_out, idx.add_out),
+                                         ("in", IN, idx.l_in, idx.add_in)):
             with region("condensed.download"):
-                bits = hub_cover.unpack_stack(entries) if packed \
-                    else entries > 0
-                cs, ys, xs = (t.cpu().numpy() for t in torch.nonzero(
-                    bits, as_tuple=True))
-                del bits
-            count.inc(len(cs))
-            ctr.host_bytes_down.inc(cs.nbytes + ys.nbytes + xs.nbytes)
+                got = _entry_pairs(entries) if packed else tuple(
+                    t.cpu().numpy() for t in torch.nonzero(entries > 0,
+                                                           as_tuple=True))
+            ctr.host_bytes_down.inc(sum(a.nbytes for a in got))
             with region("condensed.index_fill"):
-                for c, y, x in zip(cs.tolist(), ys.tolist(), xs.tolist()):
-                    add(y, x, eng.mrs[c])
+                if packed:
+                    added, pairs = idx.fill_rows(side, *got, eng.mrs)
+                else:
+                    cs, ys, xs = got
+                    for c, y, x in zip(cs.tolist(), ys.tolist(),
+                                       xs.tolist()):
+                        add(y, x, eng.mrs[c])
+                    added, pairs = len(cs), sum(map(len, maps))
+            ctr.entries[side].inc(added)
+            ctr.pairs[side].inc(pairs)
     ctr.runs.inc()
     return idx, eng

@@ -189,6 +189,57 @@ class RLCIndex:
             self._mirror.set_many(self._mirror.in_, self._mr_ids[mr], hub,
                                   vs)
 
+    def fill_rows(self, side: str, ys: np.ndarray, hubs: np.ndarray,
+                  masks: np.ndarray, mrs: Sequence[LabelSeq]
+                  ) -> Tuple[int, int]:
+        """Bulk fill of ``L_out`` (``side`` ``"out"``) or ``L_in`` (``"in"``)
+        from ``(vertex, hub)`` pairs: pair ``i`` records ``(hubs[i], mr)``
+        in the row of ``ys[i]`` for each ``mrs[c]`` whose bit is set in
+        ``masks[i]`` (bit ``c % 64`` of int64 word ``c // 64``, bit 63 the
+        sign bit). Pairs come sorted by vertex, then hub, each once; the
+        rows they fill must be empty, and no bit mirror attached.
+
+        Python-level work is done once per distinct mask: numpy finds the
+        masks and their MRs, one ``frozenset`` each. Every pair then gets a
+        fresh ``set`` copied from its mask's, and every vertex its row as
+        one dict, hubs ascending. Returns ``(entries, pairs)`` added."""
+        maps = {"out": self.l_out, "in": self.l_in}[side]
+        if self._mirror is not None:
+            raise ValueError("fill_rows keeps no bit mirror")
+        ys, hubs = np.asarray(ys), np.asarray(hubs)
+        P = len(ys)
+        if P == 0:
+            return 0, 0
+        masks = np.ascontiguousarray(masks, dtype="<i8").reshape(P, -1)
+        dy = np.diff(ys)
+        if (dy < 0).any() or ((dy == 0) & (np.diff(hubs) <= 0)).any():
+            raise ValueError("pairs must be sorted by vertex, then hub, "
+                             "each once")
+        keys = masks[:, 0] if masks.shape[1] == 1 else masks.view(
+            np.dtype((np.void, 8 * masks.shape[1]))).ravel()
+        uniq, inverse = np.unique(keys, return_inverse=True)
+        bits = np.unpackbits(uniq.view(np.uint8).reshape(len(uniq), -1),
+                             axis=1, bitorder="little")
+        sizes = bits.sum(axis=1, dtype=np.int64)
+        if bits[:, len(mrs):].any() or not sizes.all():
+            raise ValueError("a mask holds no MR, or a bit past the last")
+        cols = np.nonzero(bits)[1].tolist()
+        ends = np.cumsum(sizes).tolist()
+        table = [frozenset(map(mrs.__getitem__, cols[lo:hi]))
+                 for lo, hi in zip([0] + ends, ends)]
+        inverse = inverse.reshape(-1)
+        entries = int(np.bincount(inverse, minlength=len(uniq)) @ sizes)
+        sets = list(map(set, map(table.__getitem__, inverse.tolist())))
+        hubs = hubs.tolist()
+        counts = np.bincount(ys)
+        vs = np.flatnonzero(counts)
+        row_ends = np.cumsum(counts[vs]).tolist()
+        for v, lo, hi in zip(vs.tolist(), [0] + row_ends, row_ends):
+            if maps[v]:
+                raise ValueError(f"row {v} is not empty")
+            maps[v] = dict(zip(hubs[lo:hi], sets[lo:hi]))
+        return entries, P
+
     def has_out(self, v: int, hub: int, mr: LabelSeq) -> bool:
         s = self.l_out[v].get(hub)
         return s is not None and mr in s

@@ -19,7 +19,8 @@ KERNELS = {"mergejoin": mergejoin.KERNEL,
            "bool_matmul": bool_semiring.MATMUL_KERNEL,
            "closure_step": bool_semiring.CLOSURE_KERNEL,
            "bitpack_matmul": bitpack.KERNEL,
-           "hub_cover": hub_cover.KERNEL}
+           "hub_cover": hub_cover.KERNEL,
+           "entry_masks": hub_cover.MASKS_KERNEL}
 
 __all__ = ["KERNELS", "bitpack", "bool_semiring", "hub_cover",
            "label_frontier", "mergejoin", "ops", "ref"]

@@ -1,5 +1,6 @@
 // One side of a hub batch of the condensed build (Algorithm 2 as hub-batched
-// masked products), on bit-packed entry stacks, for Hopper.
+// masked products), on bit-packed entry stacks, for Hopper; and, after the
+// hub loop, the per-(vertex, hub) MR masks of a stack (entry_masks, below).
 //
 // Replaces no Pallas kernel: the JAX package leaves the condensed build's
 // coverage products to XLA (repro/core/dense.py::_hub_batch_step, two
@@ -181,7 +182,91 @@ hub_cover_kernel(uint32_t* __restrict__ rows,
   }
 }
 
+// ---------------------------------------------------------------------------
+// entry_masks: a packed entry stack's (vertex, hub) pairs, each with its MRs
+// as one bit mask, for the download of the build's index.
+//
+//   words: (C, n, W) int32 words (bit j of word w = column 32 w + j)
+//   masks: (n, 32 W, M) int64, M = ceil(C / 64): bit c % 64 of word c / 64
+//          of masks[y, x] is bit x of words[c, y]
+//
+// One torch.nonzero over the masks' non-zero (n, 32 W) plane then yields
+// the pairs row by row, hubs ascending, and the host fills each vertex's
+// row of the index in one step. Replaces no Pallas kernel: the JAX package
+// downloads its float stacks whole and extracts the entries on the host.
+//
+// What bounds it: bytes, the stack read once (4 C n W) and the masks
+// written once (8 M n 32 W), against five shuffle stages a loaded word. A
+// block owns one row y and 32 words (1,024 columns) of it. For each chunk
+// of 64 MRs it stages the chunk's 64 x 32 words in shared memory (each warp
+// load one 128-byte run of one MR's row; a padded row keeps the column
+// reads below free of bank conflicts). A warp then takes one word w at a
+// time: lane l holds the word of MR l (and of MR 32 + l), and a 32 x 32
+// bit transpose across the warp leaves lane j with the MR bits of column
+// 32 w + j, which the warp writes as one run of 32 masks.
+constexpr int kMaskCols = 32;  // words of a row a block owns
+
+// 32 x 32 bits across a warp: lane i holds row i on entry and column i on
+// return (bit j of lane i's word becomes bit i of lane j's).
+__device__ inline uint32_t transpose32(uint32_t x, int lane) {
+  const uint32_t keep[5] = {0x0000ffffu, 0x00ff00ffu, 0x0f0f0f0fu,
+                            0x33333333u, 0x55555555u};
+#pragma unroll
+  for (int i = 0; i < 5; ++i) {
+    const int s = 16 >> i;
+    const uint32_t m = keep[i];
+    const uint32_t o = __shfl_xor_sync(kAll, x, s);
+    x = (lane & s) ? (x & ~m) | ((o >> s) & m) : (x & m) | ((o << s) & ~m);
+  }
+  return x;
+}
+
+__global__ void __launch_bounds__(kThreads)
+entry_masks_kernel(const uint32_t* __restrict__ words,
+                   unsigned long long* __restrict__ masks, int C, int n,
+                   int W) {
+  __shared__ uint32_t tile[64][kMaskCols + 1];
+  const int y = blockIdx.x;
+  const int w0 = blockIdx.y * kMaskCols;
+  const int nw = min(kMaskCols, W - w0);
+  const int M = (C + 63) / 64;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int64_t plane = (int64_t)n * W;  // words of one MR's stack
+  const uint32_t* row = words + (int64_t)y * W + w0;
+  unsigned long long* out = masks + ((int64_t)y * W + w0) * 32 * M;
+
+  for (int m = 0; m < M; ++m) {
+    const int c0 = 64 * m, nc = min(64, C - c0);
+    if (m) __syncthreads();  // every warp is done with the last chunk
+    for (int i = threadIdx.x; i < 64 * kMaskCols; i += kThreads) {
+      const int c = i / kMaskCols, w = i % kMaskCols;
+      tile[c][w] = c < nc && w < nw ? row[(c0 + c) * plane + w] : 0u;
+    }
+    __syncthreads();
+    for (int w = warp; w < nw; w += kWarps) {
+      const uint32_t lo = transpose32(tile[lane][w], lane);
+      const uint32_t hi = nc > 32 ? transpose32(tile[32 + lane][w], lane)
+                                  : 0u;
+      out[((int64_t)32 * w + lane) * M + m] =
+          (unsigned long long)hi << 32 | lo;
+    }
+  }
+}
+
 }  // namespace
+
+// The MR masks of a (C, n, W) int32 entry stack into (n, 32 W, ceil(C / 64))
+// int64 masks (see entry_masks_kernel); every mask is written.
+extern "C" int rlc_entry_masks(const void* words, void* masks, int C, int n,
+                               int W, void* stream) {
+  const int tiles = (W + kMaskCols - 1) / kMaskCols;
+  if (C < 1 || n < 1 || W < 1 || tiles > 65535)
+    return (int)cudaErrorInvalidValue;
+  entry_masks_kernel<<<dim3(n, tiles), kThreads, 0, (cudaStream_t)stream>>>(
+      static_cast<const uint32_t*>(words),
+      static_cast<unsigned long long*>(masks), C, n, W);
+  return (int)cudaGetLastError();
+}
 
 // Dynamic shared memory a block of one launch needs.
 extern "C" int rlc_hub_cover_smem_bytes(int B, int W, int rows_per_block) {

@@ -17,6 +17,12 @@ products to XLA.
 The plain version of one side is :func:`repro_torch.kernels.ref.
 hub_cover_ref`; :func:`hub_cover` runs it for CPU tensors and launches the
 kernel for CUDA tensors (or raises).
+
+After the hub loop, :func:`entry_masks` (entry point ``rlc_entry_masks`` of
+the same source, plain version :func:`repro_torch.kernels.ref.
+entry_masks_ref`) turns a stack into one MR bit mask per ``(vertex,
+hub)`` cell, so that the build downloads the non-zero cells, not one
+coordinate triple per entry.
 """
 from __future__ import annotations
 
@@ -25,21 +31,23 @@ import ctypes
 import torch
 
 from ._build import Kernel
-from .ref import hub_cover_ref, pack_bits
+from .ref import entry_masks_ref, hub_cover_ref, pack_bits
 
-__all__ = ["hub_batch_step", "hub_cover", "hub_loop", "pack_stack",
-           "stack_words", "unpack_stack", "zero_stack"]
+__all__ = ["entry_masks", "hub_batch_step", "hub_cover", "hub_loop",
+           "pack_stack", "stack_words", "zero_stack"]
 
 KERNEL = Kernel("hub_cover", "rlc_hub_cover",
                 [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
                 + [ctypes.c_void_p])
+MASKS_KERNEL = Kernel("hub_cover", "rlc_entry_masks",
+                      [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3
+                      + [ctypes.c_void_p])
 
 #: rows a block of the kernel owns (a multiple of its 32 rows at once;
 #: timed on the H100 against 32 and 128)
 ROWS_PER_BLOCK = 64
 _HUBS = 8                  # hubs a pass of the kernel
 _MAX_SMEM = 232_448        # shared memory a block may use on the H100
-_BYTE_SHIFTS = torch.arange(8, dtype=torch.uint8)
 
 
 def stack_words(n: int) -> int:
@@ -62,15 +70,29 @@ def pack_stack(x: torch.Tensor) -> torch.Tensor:
                                              (0, pad)))
 
 
-def unpack_stack(words: torch.Tensor) -> torch.Tensor:
-    """``(C, n, W)`` int32 words -> ``(C, n, 32 W)`` bool, on the words'
-    device: the bytes of each word, little-endian, shifted apart (one
-    ``(C, n, 32 W)`` uint8 intermediate, reinterpreted as bool). Columns at
-    and past ``n`` are the padding's, all false in an entry stack."""
+def entry_masks(words: torch.Tensor) -> torch.Tensor:
+    """``(C, n, W)`` int32 words -> ``(n, 32 W, ceil(C / 64))`` int64 MR
+    masks: bit ``c % 64`` of word ``c // 64`` of ``masks[y, x]`` is bit
+    ``x`` of ``words[c, y]`` (bit 63 is the sign bit). Columns at and past
+    ``n`` are the padding's, zero for an entry stack. On a CPU device this
+    runs the plain version; on a CUDA device it launches the kernel once
+    or raises."""
+    if words.dtype != torch.int32 or words.dim() != 3 \
+            or not words.is_contiguous():
+        raise ValueError("words must be a contiguous (C, n, W) int32 tensor")
+    dev = words.device
+    if dev.type == "cpu":
+        return entry_masks_ref(words)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
     C, n, W = words.shape
-    bits = words.contiguous().view(torch.uint8).unsqueeze(-1) >> \
-        _BYTE_SHIFTS.to(words.device)
-    return bits.bitwise_and_(1).view(torch.bool).reshape(C, n, 32 * W)
+    masks = torch.empty((n, 32 * W, -(-C // 64)), dtype=torch.int64,
+                        device=dev)
+    if masks.numel():
+        with torch.cuda.device(dev):
+            MASKS_KERNEL(words.data_ptr(), masks.data_ptr(), C, n, W,
+                         torch.cuda.current_stream(dev).cuda_stream)
+    return masks
 
 
 def _check_smem(B: int, W: int) -> None:

@@ -174,3 +174,23 @@ def hub_cover_ref(rows: torch.Tensor, other: torch.Tensor,
         rows[:, :, h >> 5] |= torch.where(
             add[:, :, b], bit - 2 ** 32 if bit >= 2 ** 31 else bit,
             0).to(torch.int32)
+
+
+def entry_masks_ref(words: torch.Tensor) -> torch.Tensor:
+    """The MR masks of a bit-packed entry stack, one ``(vertex, hub)`` cell
+    each.
+
+    words: ``(C, n, W)`` int32 words (bit ``j`` of word ``w`` is column
+    ``32 * w + j``). Returns ``(n, 32 W, ceil(C / 64))`` int64 masks: bit
+    ``c % 64`` of word ``c // 64`` of ``masks[y, x]`` is bit ``x`` of
+    ``words[c, y]``, bit 63 the sign bit. One MR's plane of bits at a
+    time."""
+    C, n, W = words.shape
+    masks = torch.zeros((n, 32 * W, -(-C // 64)), dtype=torch.int64,
+                        device=words.device)
+    for c in range(C):
+        bit = 1 << (c % 64)
+        masks[:, :, c // 64] |= torch.where(
+            unpack_bits(words[c], torch.bool),
+            bit - 2 ** 64 if bit >= 2 ** 63 else bit, 0)
+    return masks

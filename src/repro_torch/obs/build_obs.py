@@ -16,8 +16,8 @@ traced full builds and its dirty-phase re-runs — so delta re-run phases
 land in the same series as full-build phases, labeled apart.
 
 :class:`BuildCounters` holds the condensed device build's counters
-(``build_condensed_device``): its runs and the entries it hands to the
-``RLCIndex``, each bound once.
+(``build_condensed_device``): its runs, the entries and ``(vertex, hub)``
+keys it hands to the ``RLCIndex`` and its host copies, each bound once.
 """
 from __future__ import annotations
 
@@ -157,12 +157,17 @@ class BuildCounters:
     * ``rlc_build_runs{context="full"}``: builds completed (the series
       :meth:`BuildPhaseObserver.build_done` counts other backends in);
     * ``rlc_build_entries{side}``: entries handed to the ``RLCIndex``;
+    * ``rlc_build_pairs{side}``: the ``(vertex, hub)`` keys of the rows
+      filled, so entries over pairs is the MRs a key holds;
     * ``rlc_build_host_bytes{direction}``: bytes copied between host and
       device, ``up`` the reach handed over as a host array, ``down`` the
-      entries' coordinates.
+      entries (on the card one MR mask per pair, on the CPU one coordinate
+      triple per entry).
+
+    ``entries`` and ``pairs`` are keyed by side, ``"out"`` and ``"in"``.
     """
 
-    __slots__ = ("runs", "entries_out", "entries_in", "host_bytes_up",
+    __slots__ = ("runs", "entries", "pairs", "host_bytes_up",
                  "host_bytes_down")
 
     def __init__(self, registry, backend: str):
@@ -174,8 +179,14 @@ class BuildCounters:
             "rlc_build_entries",
             desc="index entries a device build handed to the RLCIndex",
             labelnames=("backend", "side"))
-        self.entries_out = entries.labels(backend=backend, side="out")
-        self.entries_in = entries.labels(backend=backend, side="in")
+        pairs = registry.counter(
+            "rlc_build_pairs",
+            desc="(vertex, hub) keys of the rows a device build filled",
+            labelnames=("backend", "side"))
+        self.entries = {side: entries.labels(backend=backend, side=side)
+                        for side in ("out", "in")}
+        self.pairs = {side: pairs.labels(backend=backend, side=side)
+                      for side in ("out", "in")}
         host = registry.counter(
             "rlc_build_host_bytes",
             desc="bytes a device build copied between host and device",

@@ -3,9 +3,9 @@
 ``DenseEngine.build`` and ``build_condensed_device`` name their phases as
 ``torch.profiler`` ranges (``repro_torch.obs.region``) while the profiler
 records and enter no ``record_function`` while it does not; the condensed
-build counts its runs and entries in ``repro_torch.obs.process_obs()``'s
-registry. The benchmark's readers (``rlcbench/program_spans.py``) read
-these names and counters.
+build counts its runs, entries and ``(vertex, hub)`` keys in
+``repro_torch.obs.process_obs()``'s registry. The benchmark's readers
+(``rlcbench/program_spans.py``) read these names and counters.
 """
 import numpy as np
 import pytest
@@ -108,7 +108,8 @@ def test_no_record_function_without_the_profiler(monkeypatch):
 
 
 def counted():
-    """The process registry's condensed-build runs and entries a side."""
+    """The process registry's condensed-build runs, and its entries and
+    ``(vertex, hub)`` keys a side."""
     reg = obs.process_obs().registry
 
     def value(name, **labels):
@@ -117,7 +118,9 @@ def counted():
             if series else 0.0
     return (value("rlc_build_runs", context="full"),
             value("rlc_build_entries", side="out"),
-            value("rlc_build_entries", side="in"))
+            value("rlc_build_entries", side="in"),
+            value("rlc_build_pairs", side="out"),
+            value("rlc_build_pairs", side="in"))
 
 
 @pytest.mark.parametrize("with_reach", [True, False])
@@ -131,9 +134,13 @@ def test_counters_match_the_index(hub_batch, with_reach):
     before = counted()
     idx, _ = tdense.build_condensed_device(g, 2, hub_batch=hub_batch,
                                            reach=reach, device="cpu")
-    runs, out, in_ = (a - b for a, b in zip(counted(), before))
+    runs, out, in_, pairs_out, pairs_in = (
+        a - b for a, b in zip(counted(), before))
     want_out = sum(len(ms) for d in idx.l_out for ms in d.values())
     assert (runs, out, in_) == (1, want_out, idx.num_entries() - want_out)
+    assert (pairs_out, pairs_in) == (sum(map(len, idx.l_out)),
+                                     sum(map(len, idx.l_in)))
+    assert 0 < pairs_out < out
 
 
 def test_the_dense_engine_counts_nothing():

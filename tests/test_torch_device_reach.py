@@ -6,13 +6,15 @@ build over it, against the benchmark's plain references, on the CPU.
   counters of the numpy path, and the labeling of ``reference/blocked.py``
   (the plain reference MR by MR), which equals ``plain.condensed``;
 * the ``rlc_build_host_bytes`` counter: ``up`` 0 on the tensor path and
-  ``C n^2`` on the numpy path, ``down`` 24 bytes an entry.
+  ``C n^2`` on the numpy path, ``down`` 24 bytes an entry on the CPU and
+  ``8 + 8 ceil(C / 64)`` bytes a ``(vertex, hub)`` key on the card.
 
 Eight labels at k = 2 (64 MRs), one case of 3 labels at k = 3 (33 MRs),
 three seeds. The card cases skip without CUDA; on the card they compare
 the two paths at the Advogato k = 2 size, and count the entries that
-``unpack_stack`` and one ``torch.nonzero`` find in a stack of 2**34
-cells (the Soc-Epinions cell's size) against a popcount of its words.
+the card's download (``entry_masks`` and one ``torch.nonzero``) finds in
+a stack of 2**34 cells (the Soc-Epinions cell's size) against a popcount
+of its words.
 """
 import sys
 from pathlib import Path
@@ -188,17 +190,19 @@ def test_cuda_tensor_and_numpy_paths_at_the_advogato_k2_size():
     ref_mrs = plain.minimum_repeats(labels, k)
     keys = index_keys(on_dev, ref_mrs, n)
     assert np.array_equal(keys, index_keys(host, ref_mrs, n))
-    assert got.tolist() == [1, *want[1:3], 0, 24 * len(keys)]
-    assert want.tolist() == [1, *got[1:3], len(mrs) * n * n,
-                             24 * len(keys)]
+    # down: one int32 vertex, one int32 hub and one int64 mask a key
+    down = 16 * sum(map(len, on_dev.l_out + on_dev.l_in))
+    assert down < 24 * len(keys)
+    assert got.tolist() == [1, *want[1:3], 0, down]
+    assert want.tolist() == [1, *got[1:3], len(mrs) * n * n, down]
 
 
 @needs_cuda
 def test_cuda_download_of_2_to_the_34_cells_counts_every_entry():
     """A packed (64, 16384, 512) stack, 2**34 cells once unpacked, with two
-    million random bits: ``unpack_stack`` and one ``torch.nonzero``, as the
-    build downloads a side, find as many entries as the words hold bits,
-    each at its bit."""
+    million random bits: the build's download of a side (``entry_masks``
+    and one ``torch.nonzero``) finds as many entries as the words hold
+    bits, each at its bit."""
     from repro_torch.kernels import hub_cover
     C, n = 64, 16384
     W = hub_cover.stack_words(n)
@@ -210,7 +214,12 @@ def test_cuda_download_of_2_to_the_34_cells_counts_every_entry():
     words.view(-1)[at] = torch.ones_like(bit, dtype=torch.int32) << bit.int()
     bits = sum(blocked.popcount(words[c:c + 8].reshape(-1).view(torch.uint8))
                for c in range(0, C, 8))
-    cs, ys, xs = torch.nonzero(hub_cover.unpack_stack(words), as_tuple=True)
+    ys, xs, masks = dense._entry_pairs(words)
+    mask_bits = np.unpackbits(masks.view(np.uint8), axis=1,
+                              bitorder="little")
+    pair, cs = np.nonzero(mask_bits)
     assert len(cs) == bits > 1_900_000
+    cs, ys, xs = (torch.from_numpy(a).cuda().long()
+                  for a in (cs, ys[pair], xs[pair]))
     word = words[cs, ys, xs // 32]
     assert bool(((word >> (xs % 32).int()) & 1).all())

@@ -81,7 +81,7 @@ def test_pack_unpack_round_trip(n):
     W = hub_cover.stack_words(n)
     assert words.shape == (3, n, W) and words.dtype == torch.int32
     assert W % 4 == 0 and 32 * W >= n > 32 * (W - 4)
-    bits = hub_cover.unpack_stack(words)
+    bits = ref.unpack_bits(words, torch.bool)
     assert bits.dtype == torch.bool and bits.shape == (3, n, 32 * W)
     assert torch.equal(bits[:, :, :n], x)
     assert not bits[:, :, n:].any()
