@@ -1,7 +1,14 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py              # every step below
+    python3 chip_smoke.py --phase N    # step N alone, N from 10 to 15
+
+``--phase`` runs one phase with what it stands on: steps 1-7 before 10
+and 11 (:func:`ad_setup`, with their checks), 13 before 14, the kernel
+build before 14 and 15, nothing before 12 and 13. To compare two trees,
+run each tree's own script in its own process (parent, change, change,
+parent).
 
 Drives the port's main path once at the published size of the paper's
 Advogato graph (AD: 6,541 vertices, 3 labels, k = 2) through the entry
@@ -144,10 +151,13 @@ logged beside it); every bound counts the bytes and operations of this
 run's inputs.
 Any failure raises and the script exits non-zero; without a CUDA device,
 or without the repository beside it, it exits non-zero before printing a
-result. The last line is ``{"ok": true, "device": {...}}``.
+result. The last line is ``{"ok": true, "phase": N, "device": {...}}``
+(``phase`` null in the full run, which prints the ``kernels`` line before
+it).
 """
 from __future__ import annotations
 
+import argparse
 import ctypes
 import json
 import os
@@ -157,6 +167,7 @@ import sys
 import time
 import zlib
 from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 
@@ -168,6 +179,7 @@ HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory rate
 CUDA_CORE_OPS_PER_S = 67e12  # H100 SXM 32-bit rate outside tensor cores
 TENSOR_OPS_PER_S = 989e12    # H100 SXM dense bf16 tensor-core rate
 HUB_BATCH = 8                # distributed_build's default in the reference
+PHASES = range(10, 16)       # the phases that --phase runs alone
 # deterministic cuBLAS for phase 13's restart drill; read when CUDA starts
 os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
@@ -2531,31 +2543,10 @@ def run_examples(torch, card, kernels) -> dict:
     return launches
 
 
-def main() -> int:
-    import torch
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device", file=sys.stderr)
-        return 2
-    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
-    from repro_torch.build import build_rlc_index_with_stats
-    from repro_torch.build.cuda_backend import CudaEngine
-    from repro_torch.core import dense
-    from repro_torch.core.baselines import bibfs_rlc
-    from repro_torch.core.device_index import DeviceIndex
-    from repro_torch.core.queries import biased_true_queries
-    from repro_torch.graphgen import barabasi_albert
-    from repro_torch.kernels import KERNELS, _build
-    from repro_torch.service import RLCService, ServiceConfig
-
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True)
-    card = smi.stdout.strip().splitlines()[0]
-    log(f"torch {torch.__version__} cuda {torch.version.cuda} "
-        f"python {sys.version.split()[0]}")
-    log(card)
-
+def build_kernels() -> None:
+    """Step 1: every kernel source built, one ``nvcc`` each, all started
+    together; each kernel's registers and spills logged."""
+    from repro_torch.kernels import _build
     t0 = time.perf_counter()
     logs = _build.build(["mergejoin", "label_frontier", "bool_semiring",
                          "hub_cover"])
@@ -2574,6 +2565,24 @@ def main() -> int:
     log(f"  bool_semiring dynamic shared memory a block: wgmma "
         f"{smem(0, 0)} B, split-K with float32 b {smem(1, 1)} B, with "
         f"bf16 b {smem(1, 0)} B")
+
+
+def ad_setup(torch) -> SimpleNamespace:
+    """Steps 2-7 at AD size, each with its checks: the graph and its
+    ``numpy`` build, the kernels against their plain versions, the
+    service's ``cuda`` build and its answers, the dense engine's reach and
+    the condensed index. Returns what steps 8-11 read (the seeded
+    generator too, as these steps left it), and the rows and launch
+    counts of the kernels line."""
+    from repro_torch.build import build_rlc_index_with_stats
+    from repro_torch.build.cuda_backend import CudaEngine
+    from repro_torch.core import dense
+    from repro_torch.core.baselines import bibfs_rlc
+    from repro_torch.core.device_index import DeviceIndex
+    from repro_torch.core.queries import biased_true_queries
+    from repro_torch.graphgen import barabasi_albert
+    from repro_torch.kernels import KERNELS
+    from repro_torch.service import RLCService, ServiceConfig
 
     t0 = time.perf_counter()
     g = barabasi_albert(**AD)
@@ -2766,93 +2775,139 @@ def main() -> int:
             f"reached); answers held against reach and the CSR join above")
     del svc_c
 
-    # -- the kernel surface's path, counted ---------------------------- #
-    n_src, surface_counts = counted(
-        torch, KERNELS, ("frontier_step", "frontier_steps",
-                         "bitpack_matmul"),
-        lambda: run_surface_path(torch, g, eng, rng))
-    log(f"surface BFS: {n_src} sources along (0 1), (0 2), (2 0), (1 2) "
-        f"equal reach; launches {surface_counts}")
     launches.update(dense_counts)
-    launches.update(surface_counts)
+    return SimpleNamespace(
+        g=g, numpy_build=(ref_idx, ref_stats), svc=svc, queries=queries,
+        want=[a.value for a in answers], eng=eng, condensed=idx_c,
+        big_q=big_q, rng=rng, results=results, launches=launches)
 
-    # -- the whole single-host service, counted ------------------------ #
-    t0 = time.perf_counter()
-    full_counts = run_full_service(torch, card, g, svc.index, queries,
-                                   KERNELS, rng)
-    log(f"phase 9: {time.perf_counter() - t0:.1f} s (host clock); "
-        f"launches {full_counts} (not in the kernels line)")
 
-    # -- sharded serving, in process and over RPC, counted ------------- #
-    sharded_counts = run_sharded(torch, card, g, svc.index, queries,
-                                 [a.value for a in answers], KERNELS, rng)
-    log(f"phase 10 merge-join launches {sharded_counts} (not in the kernels "
-        f"line)")
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--phase", type=int, choices=PHASES,
+                        help="run this phase alone (with 13 before 14, "
+                             "and steps 1-7 before 10 and 11)")
+    phase = parser.parse_args(argv).phase
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    from repro_torch.kernels import KERNELS
 
-    # -- the parallel build and the distributed dense engine, counted --- #
-    t0 = time.perf_counter()
-    par_counts = run_parallel_build(
-        torch, card, g, svc, (ref_idx, ref_stats), queries,
-        [a.value for a in answers], KERNELS)
-    dist_counts = run_distributed(torch, card, g, eng.reach, idx_c, big_q,
-                                  KERNELS, rng)
-    log(f"phase 11: {time.perf_counter() - t0:.1f} s (host clock); "
-        f"launches: parallel-built service {par_counts}, distributed "
-        f"{dist_counts} (not in the kernels line) ({card})")
+    def runs(p: int) -> bool:
+        return phase in (None, p)
 
-    # -- the model substrate's serving path ------------------------------ #
-    for kern in KERNELS.values():
-        kern.launches = 0
-    run_model_serving(torch, card)
-    torch.cuda.synchronize()
-    log(f"phase 12 launches of the nine kernels: "
-        f"{sum(k.launches for k in KERNELS.values())} (the model path has "
-        f"no hand-written kernel: plain torch ops)")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True)
+    card = smi.stdout.strip().splitlines()[0]
+    log(f"torch {torch.__version__} cuda {torch.version.cuda} "
+        f"python {sys.version.split()[0]}")
+    log(card)
+    if phase not in (12, 13):
+        build_kernels()
+    if phase in (None, 10, 11):
+        ad = ad_setup(torch)
+        rng = ad.rng
 
-    # -- the model substrate's training path ----------------------------- #
-    for kern in KERNELS.values():
-        kern.launches = 0
-    trained = run_model_training(torch, card)
-    torch.cuda.synchronize()
-    log(f"phase 13 launches of the nine kernels: "
-        f"{sum(k.launches for k in KERNELS.values())} (the training path "
-        f"has no hand-written kernel: plain torch ops and autograd)")
+    if phase is None:
+        # -- the kernel surface's path, counted ------------------------ #
+        n_src, surface_counts = counted(
+            torch, KERNELS, ("frontier_step", "frontier_steps",
+                             "bitpack_matmul"),
+            lambda: run_surface_path(torch, ad.g, ad.eng, rng))
+        log(f"surface BFS: {n_src} sources along (0 1), (0 2), (2 0), "
+            f"(1 2) equal reach; launches {surface_counts}")
+        ad.launches.update(surface_counts)
 
-    # -- the dry run and the roofline, held against the card ------------- #
-    for kern in KERNELS.values():
-        kern.launches = 0
-    run_dry_run(torch, card, trained, KERNELS)
+        # -- the whole single-host service, counted -------------------- #
+        t0 = time.perf_counter()
+        full_counts = run_full_service(torch, card, ad.g, ad.svc.index,
+                                       ad.queries, KERNELS, rng)
+        log(f"phase 9: {time.perf_counter() - t0:.1f} s (host clock); "
+            f"launches {full_counts} (not in the kernels line)")
 
-    # -- the example twins and cross-layout checkpoints ------------------ #
-    run_examples(torch, card, KERNELS)
+    if runs(10):
+        # -- sharded serving, in process and over RPC, counted --------- #
+        sharded_counts = run_sharded(torch, card, ad.g, ad.svc.index,
+                                     ad.queries, ad.want, KERNELS, rng)
+        log(f"phase 10 merge-join launches {sharded_counts} (not in the "
+            f"kernels line)")
 
-    csrc = "src/repro_torch/kernels/csrc/"
-    meta = {
-        "mergejoin": (csrc + "mergejoin.cu",
-                      "src/repro/kernels/mergejoin.py:40"),
-        "label_frontier": (csrc + "label_frontier.cu",
-                           "src/repro/kernels/label_frontier.py:76"),
-        "frontier_steps": (csrc + "label_frontier.cu",
-                           "src/repro/kernels/label_frontier.py:113"),
-        "frontier_step": (csrc + "bool_semiring.cu",
-                          "src/repro/kernels/label_frontier.py:45"),
-        "bool_matmul": (csrc + "bool_semiring.cu",
-                        "src/repro/kernels/bool_semiring.py:57"),
-        "closure_step": (csrc + "bool_semiring.cu",
-                         "src/repro/kernels/bool_semiring.py:84"),
-        "bitpack_matmul": (csrc + "label_frontier.cu",
-                           "src/repro/kernels/bitpack.py:64"),
-        "hub_cover": (csrc + "hub_cover.cu", None),
-        "entry_masks": (csrc + "hub_cover.cu", None),
-    }
-    for name in ("mergejoin", "label_frontier"):
-        results[name].setdefault("library_ms", None)
-    log(json.dumps({"kernels": [
-        dict(name=name, route="cuda", source=meta[name][0],
-             replaces=meta[name][1], launches=launches[name],
-             **results[name])
-        for name in KERNELS]}))
-    log(json.dumps({"ok": True, "device": {
+    if runs(11):
+        # -- the parallel build and the distributed dense engine ------- #
+        t0 = time.perf_counter()
+        par_counts = run_parallel_build(torch, card, ad.g, ad.svc,
+                                        ad.numpy_build, ad.queries, ad.want,
+                                        KERNELS)
+        dist_counts = run_distributed(torch, card, ad.g, ad.eng.reach,
+                                      ad.condensed, ad.big_q, KERNELS, rng)
+        log(f"phase 11: {time.perf_counter() - t0:.1f} s (host clock); "
+            f"launches: parallel-built service {par_counts}, distributed "
+            f"{dist_counts} (not in the kernels line) ({card})")
+
+    if runs(12):
+        # -- the model substrate's serving path ------------------------ #
+        for kern in KERNELS.values():
+            kern.launches = 0
+        run_model_serving(torch, card)
+        torch.cuda.synchronize()
+        log(f"phase 12 launches of the nine kernels: "
+            f"{sum(k.launches for k in KERNELS.values())} (the model path "
+            f"has no hand-written kernel: plain torch ops)")
+
+    if phase in (None, 13, 14):
+        # -- the model substrate's training path ----------------------- #
+        for kern in KERNELS.values():
+            kern.launches = 0
+        trained = run_model_training(torch, card)
+        torch.cuda.synchronize()
+        log(f"phase 13 launches of the nine kernels: "
+            f"{sum(k.launches for k in KERNELS.values())} (the training "
+            f"path has no hand-written kernel: plain torch ops and "
+            f"autograd)")
+
+    if runs(14):
+        # -- the dry run and the roofline, held against the card ------- #
+        for kern in KERNELS.values():
+            kern.launches = 0
+        run_dry_run(torch, card, trained, KERNELS)
+
+    if runs(15):
+        # -- the example twins and cross-layout checkpoints ------------ #
+        run_examples(torch, card, KERNELS)
+
+    if phase is None:
+        results, launches = ad.results, ad.launches
+        csrc = "src/repro_torch/kernels/csrc/"
+        meta = {
+            "mergejoin": (csrc + "mergejoin.cu",
+                          "src/repro/kernels/mergejoin.py:40"),
+            "label_frontier": (csrc + "label_frontier.cu",
+                               "src/repro/kernels/label_frontier.py:76"),
+            "frontier_steps": (csrc + "label_frontier.cu",
+                               "src/repro/kernels/label_frontier.py:113"),
+            "frontier_step": (csrc + "bool_semiring.cu",
+                              "src/repro/kernels/label_frontier.py:45"),
+            "bool_matmul": (csrc + "bool_semiring.cu",
+                            "src/repro/kernels/bool_semiring.py:57"),
+            "closure_step": (csrc + "bool_semiring.cu",
+                             "src/repro/kernels/bool_semiring.py:84"),
+            "bitpack_matmul": (csrc + "label_frontier.cu",
+                               "src/repro/kernels/bitpack.py:64"),
+            "hub_cover": (csrc + "hub_cover.cu", None),
+            "entry_masks": (csrc + "hub_cover.cu", None),
+        }
+        for name in ("mergejoin", "label_frontier"):
+            results[name].setdefault("library_ms", None)
+        log(json.dumps({"kernels": [
+            dict(name=name, route="cuda", source=meta[name][0],
+                 replaces=meta[name][1], launches=launches[name],
+                 **results[name])
+            for name in KERNELS]}))
+    log(json.dumps({"ok": True, "phase": phase, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0

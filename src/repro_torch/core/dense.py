@@ -8,15 +8,14 @@ computation into boolean matrix-matrix products. This module provides:
 * ``mr_step_matrix``   — ``M_L = A[l1] (x) ... (x) A[lm]`` (OR-AND chain);
 * ``plus_closure``     — ``M^+`` by log-doubling (``h <= |V|`` repeats);
 * ``DenseEngine``      — ETC-equivalent all-pairs ``S^k`` oracle on device;
-* ``device_reach``     — the same all-MR reach kept on the device as one
-  bool stack, built MR by MR;
+* ``device_reach``     — the same all-MR reach kept on the device;
 * ``build_condensed_device`` — hub-batched pruned 2-hop labeling: the
   paper's Algorithm 2 re-derived as masked matmuls (PR2 is the aid mask,
   PR1 a vectorized coverage query, one matmul per hub batch; batch size 1
   reproduces the sequential pruning schedule).
 
 Boolean values ride as 0/1. With no ``matmul`` given, the engine keeps
-its adjacency and reach stacks in bf16 (exact for 0/1, half the bytes of
+its adjacency and each MR's closure in bf16 (exact for 0/1, half the bytes of
 float32, and the operand type the semiring kernels read without a
 staging pass), and the products run through the hand-written kernels of
 :mod:`repro_torch.kernels.bool_semiring` on a CUDA device (the plain
@@ -38,11 +37,17 @@ ground truth of the kernel's path. All float products sum 0/1 values in
 float32, exact whether or not TF32 is on; PyTorch's default (TF32 off)
 is assumed and not changed here.
 
+Both reaches come from one loop, :func:`_all_mr_reach`: it writes each
+MR's closure, cropped and thresholded, into its plane of one ``(C, n,
+n)`` bool stack on the device and frees it before the next MR starts, so
+the device holds the stack, the adjacency and one MR's buffers at a
+time. :meth:`DenseEngine.build` downloads that stack as its numpy
+``reach``, as in the JAX package; :func:`device_reach` leaves it on the
+device, and ``build_condensed_device`` takes it there with no copy
+through the host.
+
 Entry points take ``device="cuda"`` by default and raise where no card
-is present. ``DenseEngine.reach`` is a numpy ``(C, n, n)`` bool array, as
-in the JAX package. :func:`device_reach` gives the same reach as a bool
-tensor that stays on the device, and ``build_condensed_device`` takes it
-there with no copy through the host.
+is present.
 
 Both builds name their phases on ``torch.profiler``'s timeline while it
 records (:func:`repro_torch.obs.region`: ``repro_torch.dense.adjacency``,
@@ -120,11 +125,17 @@ def plus_closure(M: torch.Tensor, n_iters: Optional[int] = None,
 
 def _all_mr_reach(A: torch.Tensor, mrs: Tuple[LabelSeq, ...], n: int,
                   matmul: Optional[MatMul] = None) -> torch.Tensor:
-    """Stack of ``R_L`` for every MR (C, n_pad, n_pad), over the padded
-    adjacency ``A``, with the doubling count of the unpadded ``n``."""
-    return torch.stack([plus_closure(mr_step_matrix(A, mr, matmul),
-                                     n_iters=_n_iters(n), matmul=matmul)
-                        for mr in mrs])
+    """Contiguous ``(C, n, n)`` bool stack of ``R_L`` for every MR, on
+    ``A``'s device, over the padded adjacency ``A`` with the doubling
+    count of the unpadded ``n``. Each MR's closure is cropped and
+    thresholded into its plane, then freed before the next MR starts."""
+    R = torch.empty((len(mrs), n, n), dtype=torch.bool, device=A.device)
+    for c, mr in enumerate(mrs):
+        closure = plus_closure(mr_step_matrix(A, mr, matmul),
+                               n_iters=_n_iters(n), matmul=matmul)
+        torch.gt(closure[:n, :n], 0, out=R[c])
+        del closure
+    return R
 
 
 def label_adjacency(graph: LabeledGraph, device,
@@ -151,8 +162,9 @@ class DenseEngine:
     k: int
     mrs: Tuple[LabelSeq, ...]
     mr_ids: Dict[LabelSeq, int]
-    reach: np.ndarray  # (C, n, n) bool — reach[c, u, v] = u ~~mr_c^+~~> v
-    # (a device tensor where build_condensed_device was handed one)
+    #: (C, n, n) bool, reach[c, u, v] = u ~~mr_c^+~~> v: the numpy array
+    #: of :meth:`build`, or the tensor handed to ``build_condensed_device``
+    reach: Union[np.ndarray, torch.Tensor]
 
     @staticmethod
     def build(graph: LabeledGraph, k: int,
@@ -168,7 +180,7 @@ class DenseEngine:
             R = _all_mr_reach(A, mrs, n, matmul)
         del A
         with region("dense.download"):
-            reach = (R[:, :n, :n] > 0).cpu().numpy()
+            reach = R.cpu().numpy()
         return DenseEngine(graph, k, mrs, mr_id_space(graph.num_labels, k),
                            reach)
 
@@ -188,24 +200,15 @@ class DenseEngine:
 
 def device_reach(graph: LabeledGraph, k: int, device="cuda"
                  ) -> Tuple[Tuple[LabelSeq, ...], torch.Tensor]:
-    """``(mrs, R)``: the reach of :meth:`DenseEngine.build` as a contiguous
-    ``(C, n, n)`` bool tensor that stays on ``device``. Each MR runs
-    through the same bf16 products (:func:`mr_step_matrix`,
-    :func:`plus_closure`) and is written into ``R`` before the next one
-    starts, so the device holds ``R``, the adjacency and one MR's buffers
-    at a time, never the stack of closures that ``DenseEngine.build``
-    keeps before its download."""
+    """``(mrs, R)``: the reach of :meth:`DenseEngine.build` as the
+    contiguous ``(C, n, n)`` bool tensor of :func:`_all_mr_reach`, left on
+    ``device``."""
     dev = resolve_device(device)
-    n = graph.num_vertices
     mrs = enumerate_mrs(graph.num_labels, k)
     with region("dense.adjacency"):
         A = label_adjacency(graph, dev, torch.bfloat16)
-    R = torch.empty((len(mrs), n, n), dtype=torch.bool, device=dev)
     with region("dense.reach"):
-        for c, mr in enumerate(mrs):
-            closure = plus_closure(mr_step_matrix(A, mr), n_iters=_n_iters(n))
-            R[c] = closure[:n, :n] > 0
-            del closure
+        R = _all_mr_reach(A, mrs, graph.num_vertices)
     return mrs, R
 
 

@@ -39,7 +39,8 @@ from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 
 from repro_torch.kernels import bool_semiring, mergejoin
 
-from .dense import DenseEngine, _n_iters, build_condensed_device
+from .dense import (DenseEngine, _n_iters, build_condensed_device,
+                    mr_step_matrix, plus_closure)
 from .devices import resolve_device
 from .graph import LabeledGraph
 from .minimum_repeat import enumerate_mrs
@@ -151,14 +152,11 @@ def distributed_plus_closure(M: torch.Tensor, mesh: DeviceMesh,
                              matmul: Optional[RowParallelMatmul] = None
                              ) -> torch.Tensor:
     """Log-doubling closure ``R = R | R @ R`` of this rank's row block
-    ``M`` (rows, n) with the row-parallel product; returns the block of
-    ``M^+``. ``n_iters`` defaults to the reference's count for ``n``."""
-    mm = matmul or shmap_bool_matmul(mesh, axis)
-    R = M
-    for _ in range(n_iters if n_iters is not None
-                   else _n_iters(M.shape[-1])):
-        R = torch.maximum(R, mm(R, R))
-    return R
+    ``M`` (rows, n): :func:`~.dense.plus_closure` with the row-parallel
+    product; returns the block of ``M^+``. ``n_iters`` defaults to the
+    reference's count for ``n``."""
+    return plus_closure(M, n_iters,
+                        matmul=matmul or shmap_bool_matmul(mesh, axis))
 
 
 def _label_rows(graph: LabeledGraph, n_pad: int, lo: int, rows: int,
@@ -191,14 +189,9 @@ def distributed_all_mr_reach(graph: LabeledGraph, k: int, mesh: DeviceMesh,
     n_pad = -(-max(n, 1) // step) * step
     rows = n_pad // mm.size
     A = _label_rows(graph, n_pad, mm.rank * rows, rows, dev)
-    blocks = []
-    for mr in mrs:
-        M = A[mr[0]]
-        for lab in mr[1:]:
-            M = mm(M, A[lab])
-        blocks.append(distributed_plus_closure(M, mesh, axis,
-                                               n_iters=_n_iters(n),
-                                               matmul=mm))
+    blocks = [distributed_plus_closure(mr_step_matrix(A, mr, mm), mesh,
+                                       axis, n_iters=_n_iters(n), matmul=mm)
+              for mr in mrs]
     del A
     R = mm.gather_rows(torch.stack(blocks), dim=1)
     return (R[:, :n, :n] > 0).cpu().numpy()

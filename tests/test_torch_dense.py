@@ -94,9 +94,9 @@ def test_dense_reach_matches_jax_pallas_hook_and_own_hook():
 
 @pytest.mark.parametrize("k", [1, 2])
 def test_dense_engine_bf16_stack_matches_jax(k, monkeypatch):
-    """With no ``matmul`` the engine keeps its stacks in bf16 (exact for
-    0/1); its reach still equals the JAX package's float32 reach, and a
-    caller-given ``matmul`` keeps float32."""
+    """With no ``matmul`` the engine's operands are bf16 (exact for 0/1)
+    and a caller-given ``matmul`` keeps float32; either way the reach is
+    one bool stack, equal to the JAX package's float32 reach."""
     jdense = pytest.importorskip("repro.core.dense")
     jg, tg = graphs(7 + k, G12)
     seen = []
@@ -110,13 +110,13 @@ def test_dense_engine_bf16_stack_matches_jax(k, monkeypatch):
 
     monkeypatch.setattr(tdense, "_all_mr_reach", spy)
     got = tdense.DenseEngine.build(tg, k, device="cpu")
-    assert seen == [torch.bfloat16, torch.bfloat16]
+    assert seen == [torch.bfloat16, torch.bool]
     np.testing.assert_array_equal(got.reach,
                                   jdense.DenseEngine.build(jg, k).reach)
     seen.clear()
     tdense.DenseEngine.build(tg, k, matmul=tdense.bool_matmul,
                              device="cpu")
-    assert seen == [torch.float32, torch.float32]
+    assert seen == [torch.float32, torch.bool]
     A = tdense.label_adjacency(tg, "cpu", torch.bfloat16)
     assert A.dtype == torch.bfloat16 and A.shape[1] % 128 == 0
     np.testing.assert_array_equal(

@@ -11,7 +11,8 @@ build over it, against the benchmark's plain references, on the CPU.
 
 Eight labels at k = 2 (64 MRs), one case of 3 labels at k = 3 (33 MRs),
 three seeds. The card cases skip without CUDA; on the card they compare
-the two paths at the Advogato k = 2 size, and count the entries that
+the two paths at the Advogato k = 2 size, bound ``DenseEngine.build``'s
+peak there (one MR's closure at a time), and count the entries that
 the card's download (``entry_masks`` and one ``torch.nonzero``) finds in
 a stack of 2**34 cells (the Soc-Epinions cell's size) against a popcount
 of its words.
@@ -195,6 +196,27 @@ def test_cuda_tensor_and_numpy_paths_at_the_advogato_k2_size():
     assert down < 24 * len(keys)
     assert got.tolist() == [1, *want[1:3], 0, down]
     assert want.tolist() == [1, *got[1:3], len(mrs) * n * n, down]
+
+
+@needs_cuda
+def test_cuda_dense_build_holds_one_mr_at_a_time():
+    """At the Advogato k = 2 size, ``DenseEngine.build``'s peak on the card
+    stays under the bool reach, the padded bf16 adjacency and four padded
+    bf16 planes: the MRs' closures are never held all at once."""
+    from repro_torch.kernels.bool_semiring import TILE
+    n, labels, k = 6541, 3, 2
+    _, g = graph_of(n, labels, 1, m_attach=5, reverse_edge_p=0.5)
+    dense.DenseEngine.build(g, k)            # the kernels built and warm
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    eng = dense.DenseEngine.build(g, k)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    n_pad = -(-n // TILE) * TILE
+    C = len(eng.mrs)
+    assert C == 9
+    assert peak < C * n * n + (labels + 4) * n_pad * n_pad * 2
 
 
 @needs_cuda

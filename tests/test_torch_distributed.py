@@ -21,7 +21,7 @@ dist = pytest.importorskip("torch.distributed")
 
 from repro_torch.core import distributed as tdist  # noqa: E402
 from repro_torch.core.baselines import bfs_rlc  # noqa: E402
-from repro_torch.core.dense import DenseEngine  # noqa: E402
+from repro_torch.core.dense import DenseEngine, device_reach  # noqa: E402
 from repro_torch.core.device_index import DeviceIndex  # noqa: E402
 from repro_torch.core.minimum_repeat import mr_id_space  # noqa: E402
 from repro_torch.graphgen import random_labeled_graph  # noqa: E402
@@ -98,6 +98,22 @@ def test_distributed_reach_single_rank(mesh):
     # for the whole stack
     assert mm.all_gathers == 2 + 4 * 4 + 1
     assert mm.gathered_bytes == (18 * 128 * 128 + 4 * 128 * 128) * 2
+
+
+@pytest.mark.parametrize("k", [1, 2, 3])
+def test_the_three_reaches_are_one(mesh, k):
+    """``DenseEngine.build``, ``device_reach`` and the distributed reach on
+    a one-rank mesh give the same stack, equal to ``repro``'s."""
+    from repro.core.dense import DenseEngine as JDense
+    from repro.graphgen import random_labeled_graph as j_graph
+    g = random_labeled_graph(**G11)
+    want = JDense.build(j_graph(**G11), k).reach
+    mrs, R = device_reach(g, k, device="cpu")
+    eng = DenseEngine.build(g, k, device="cpu")
+    assert tuple(mrs) == tuple(eng.mrs) and R.dtype == torch.bool
+    for got in (eng.reach, R.numpy(),
+                tdist.distributed_all_mr_reach(g, k, mesh)):
+        assert got.dtype == bool and np.array_equal(got, want)
 
 
 def test_distributed_build_and_query_single_rank(mesh):
